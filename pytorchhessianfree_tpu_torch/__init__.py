@@ -13,20 +13,41 @@ from .config import CGConfig, HFConfig, LineSearchConfig
 from .ops.cg import CG_REASON_STRINGS, CGResult, cg, cg_reason_str, storing_grid
 from .ops.cg_update import fused_cg_update, fused_cg_update_reference
 from .ops.curvature import ggnvp_fn, hvp_fn
+from .ops.precond import (
+    EMADiag,
+    diag_EF,
+    diag_EF_preconditioner,
+    diag_EF_scan,
+    diag_to_preconditioner,
+)
 from .ops.select import (
     BacktrackResult,
     LinesearchResult,
     cg_efficient_backtracking,
     simple_linesearch,
 )
+from .accumulate import (
+    StackedData,
+    acc_grad,
+    acc_loss,
+    acc_reduce,
+    make_acc_mvp,
+    pad_ragged_datalist,
+    weighted_fns,
+)
 from .optimizer import (
     HessianFree,
     HFModelFns,
     HFState,
     HFStats,
+    check_deterministic,
+    check_reduction,
+    hf_acc_step,
     hf_step,
     init_state,
+    make_hf_acc_step,
     make_hf_step,
+    make_hf_train_loop,
 )
 from .utils.flatten import TrainableRavel
 
@@ -45,16 +66,33 @@ __all__ = [
     "fused_cg_update_reference",
     "ggnvp_fn",
     "hvp_fn",
+    "EMADiag",
+    "diag_EF",
+    "diag_EF_preconditioner",
+    "diag_EF_scan",
+    "diag_to_preconditioner",
     "BacktrackResult",
     "LinesearchResult",
     "cg_efficient_backtracking",
     "simple_linesearch",
+    "StackedData",
+    "acc_grad",
+    "acc_loss",
+    "acc_reduce",
+    "make_acc_mvp",
+    "pad_ragged_datalist",
+    "weighted_fns",
     "HessianFree",
     "HFModelFns",
     "HFState",
     "HFStats",
+    "check_deterministic",
+    "check_reduction",
+    "hf_acc_step",
     "hf_step",
     "init_state",
+    "make_hf_acc_step",
     "make_hf_step",
+    "make_hf_train_loop",
     "TrainableRavel",
 ]

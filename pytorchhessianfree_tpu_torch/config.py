@@ -17,9 +17,8 @@ Three groups of fields differ in what they do here:
   ``"highest"`` mean full f32 on both; ``"high"`` and ``"default"`` mean
   TF32 on both.  cuDNN convolutions default to TF32 on Hopper, so an unset
   knob has to switch it off explicitly.
-- **Knobs not ported yet** (``curvature_dtype``, ``remat``,
-  ``precond="diag_ef"``, ``rich_stats``, the ``"batched"`` select modes and
-  ``CGConfig.store_dtype``) raise :class:`NotImplementedError` when set away
+- **Knobs not ported yet** (``curvature_dtype``, ``remat``, ``rich_stats``,
+  the ``"batched"`` select modes and ``CGConfig.store_dtype``) raise :class:`NotImplementedError` when set away
   from their default, naming the ROADMAP.md item that ports them.
 """
 
@@ -176,8 +175,6 @@ class HFConfig:
             raise ValueError(
                 f"Unknown matmul_precision {self.matmul_precision}"
             )
-        if self.precond != "none":
-            raise not_ported("HFConfig.precond='diag_ef'", "item 9")
         if self.backtracking_mode != "sequential":
             raise not_ported("HFConfig.backtracking_mode='batched'", "item 15")
         if self.curvature_dtype is not None:

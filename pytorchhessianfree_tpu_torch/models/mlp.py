@@ -12,6 +12,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
+
+from ..utils.flatten import tree_map
 
 
 def _dense_init(generator, n_in, n_out, device, dtype) -> Dict[str, torch.Tensor]:
@@ -47,6 +50,41 @@ def mlp_apply(params: Any, x: torch.Tensor) -> torch.Tensor:
     return x @ layers[-1]["w"] + layers[-1]["b"]
 
 
+def _keep_mask(shape, seed: int, layer: int, keep: float, device):
+    """Dropout keep-mask of ``shape``, drawn from a ``torch.Generator``
+    seeded from ``(seed, layer)``.
+
+    The draw runs with PyTorch's dispatch modes switched off, so a trace
+    (``torch.func.linearize`` traces the model with ``make_fx``) records the
+    mask as a constant.  Traced as an op, its replay would draw again from
+    the generator's advanced state and give the tangent graph other masks
+    than the primal."""
+    with _disable_current_modes():
+        gen = torch.Generator(device=device)
+        gen.manual_seed((int(seed) * 0x9E3779B97F4A7C15 + layer) % 2**63)
+        return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def mlp_dropout_apply(params: Any, inputs: Any, rate: float = 0.1):
+    """MLP forward with dropout on the hidden activations, the randomness
+    **in the batch**: ``inputs = (x, seed)`` with an integer ``seed``.
+
+    Every evaluation of one step (gradient, each CG matvec, each trial
+    forward) then sees the same masks, and CG's fixed quadratic model
+    holds; change the seed between steps, like the batch.  The masks come
+    from a ``torch.Generator`` seeded from ``(seed, layer)``: the same seed
+    gives the same masks on every call.  They are not ``jax.random``'s
+    masks; at ``rate=0`` the output equals the JAX model's."""
+    x, seed = inputs
+    layers = params["layers"]
+    keep = 1.0 - rate
+    for i, layer in enumerate(layers[:-1]):
+        x = torch.tanh(x @ layer["w"] + layer["b"])
+        mask = _keep_mask(x.shape, seed, i, keep, x.device)
+        x = torch.where(mask, x / keep, x.new_zeros(()))
+    return x @ layers[-1]["w"] + layers[-1]["b"]
+
+
 def mse_loss(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """MSE with mean reduction."""
     return torch.mean((outputs - targets) ** 2)
@@ -58,3 +96,41 @@ def cross_entropy_loss(
     """Softmax cross-entropy with integer labels, mean reduction."""
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.mean(torch.gather(logp, -1, labels[:, None].long()))
+
+
+def mse_loss_sum(
+    outputs: torch.Tensor, targets: torch.Tensor
+) -> torch.Tensor:
+    return torch.sum((outputs - targets) ** 2)
+
+
+def cross_entropy_loss_sum(
+    logits: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(torch.gather(logp, -1, labels[:, None].long()))
+
+
+def mse_per_sample(
+    outputs: torch.Tensor, targets: torch.Tensor
+) -> torch.Tensor:
+    """[N] per-sample MSE (mean over the feature dims): its mean over
+    samples is :func:`mse_loss`."""
+    axes = tuple(range(1, outputs.ndim))
+    return torch.mean((outputs - targets) ** 2, dim=axes)
+
+
+def cross_entropy_per_sample(
+    logits: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    """[N] per-sample softmax cross-entropy with integer labels."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+
+
+def freeze_first_layer(params: Any) -> Any:
+    """Trainable mask with layer 0 frozen (the reference's ``freeze_layer1``
+    test knob)."""
+    mask = tree_map(lambda _: True, params)
+    mask["layers"][0] = tree_map(lambda _: False, mask["layers"][0])
+    return mask

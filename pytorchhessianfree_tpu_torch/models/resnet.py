@@ -34,14 +34,26 @@ def _same_pad(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-def conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """NCHW input, HWIO kernel, JAX ``"SAME"`` padding."""
-    kh, kw = w.shape[0], w.shape[1]
-    top, bottom = _same_pad(x.shape[2], kh, stride)
-    left, right = _same_pad(x.shape[3], kw, stride)
-    if top or bottom or left or right:
-        x = F.pad(x, (left, right, top, bottom))
+def conv(
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME"
+) -> torch.Tensor:
+    """NCHW input, HWIO kernel, JAX ``"SAME"`` or ``"VALID"`` padding."""
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"Unknown padding {padding!r}")
+    if padding == "SAME":
+        kh, kw = w.shape[0], w.shape[1]
+        top, bottom = _same_pad(x.shape[2], kh, stride)
+        left, right = _same_pad(x.shape[3], kw, stride)
+        if top or bottom or left or right:
+            x = F.pad(x, (left, right, top, bottom))
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
+
+
+def _conv_init(generator, kh, kw, cin, cout, device, dtype):
+    """He-normal HWIO kernel, drawn on the generator's device."""
+    t = torch.randn((kh, kw, cin, cout), generator=generator,
+                    device=generator.device, dtype=dtype)
+    return (t * (2.0 / (kh * kw * cin)) ** 0.5).to(device)
 
 
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
@@ -103,7 +115,7 @@ def init_resnet18(
         return (t * std).to(device)
 
     def conv_init(kh, kw, cin, cout):
-        return normal((kh, kw, cin, cout), (2.0 / (kh * kw * cin)) ** 0.5)
+        return _conv_init(generator, kh, kw, cin, cout, device, dtype)
 
     def bn_init(c):
         return {

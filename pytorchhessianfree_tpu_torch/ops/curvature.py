@@ -1,7 +1,7 @@
 """Matrix-free curvature-vector products: HVP and GGN-VP (port of
 :mod:`pytorchhessianfree_tpu.ops.curvature`).
 
-Both builders do the nonlinear work once per batch and return a matvec
+The ``*_fn`` forms do the nonlinear work once per batch and return a matvec
 closure that the CG loop calls once per iteration:
 
 - ``ggnvp_fn``: ``torch.func.linearize`` of the model gives ``J v`` by
@@ -10,6 +10,13 @@ closure that the CG loop calls once per iteration:
   ``J v`` -> jvp of ``grad(loss_outer)`` at the outputs -> ``J^T``.
 - ``hvp_fn``: ``torch.func.linearize`` of ``(grad, value)`` of the loss,
   forward over reverse.
+
+``linearize`` traces the tangent graph with ``make_fx`` on the host, which
+costs seconds per batch for a conv net (PERF.md, section 5).  Where a
+product is needed once per batch and per CG iteration, as for each chunk of
+an accumulated matvec, the one-shot forms ``ggnvp`` and ``hvp`` build and
+apply the product in one call with ``torch.func.jvp`` and
+``torch.func.vjp`` and trace nothing.
 
 Both work on parameter trees; the optimizer converts to and from the flat
 CG vector space with :class:`~.utils.flatten.TrainableRavel`.
@@ -56,9 +63,28 @@ def ggnvp_fn(
     loss = loss_outer(outputs)
     grad_tree = vjp_of_model(loss_grad_fn(outputs))[0]
 
-    def ggnvp(v: Any) -> Any:
+    def mvp(v: Any) -> Any:
         Jv = jvp_of_model(v)
         HJv = jvp(loss_grad_fn, (outputs,), (Jv,))[1]
         return vjp_of_model(HJv)[0]
 
-    return loss, outputs, grad_tree, ggnvp
+    return loss, outputs, grad_tree, mvp
+
+
+def ggnvp(
+    model_fn: Callable[[Any], Any],
+    loss_outer: Callable[[Any], torch.Tensor],
+    params: Any,
+    v: Any,
+) -> Any:
+    """One GGN-vector product ``J^T H_L (J v)`` on trees, built and applied
+    in one call: a jvp of the model (which also gives the outputs) and a vjp
+    of it."""
+    outputs, Jv = jvp(model_fn, (params,), (v,))
+    HJv = jvp(grad(loss_outer), (outputs,), (Jv,))[1]
+    return vjp(model_fn, params)[1](HJv)[0]
+
+
+def hvp(loss_fn: Callable[[Any], torch.Tensor], params: Any, v: Any) -> Any:
+    """One Hessian-vector product on trees, forward over reverse."""
+    return jvp(grad(loss_fn), (params,), (v,))[1]

@@ -11,22 +11,33 @@ iteration, and the CG vector phase is the hand-written
 :func:`~.ops.cg_update.fused_cg_update` kernel on a card.
 
 :func:`hf_step` is a function of ``(params, state, batch)`` that returns new
-tensors and leaves its inputs alone; :class:`HessianFree` owns the
-parameter tree and keeps the reference's history lists.
+tensors and leaves its inputs alone; :func:`hf_acc_step` is the same update
+over datalists (:mod:`.accumulate`); :func:`make_hf_train_loop` runs steps
+over a stacked batch with an optional EMA empirical-Fisher preconditioner.
+:class:`HessianFree` owns the parameter tree and keeps the reference's
+history lists.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value
 
+from . import accumulate as acc
 from .config import HFConfig, not_ported, precision_ctx
 from .ops.cg import CG_REASON_STRINGS, cg
 from .ops.curvature import ggnvp_fn, hvp_fn
+from .ops.precond import (
+    EMADiag,
+    diag_EF,
+    diag_EF_scan,
+    diag_to_preconditioner,
+)
 from .ops.select import cg_efficient_backtracking, simple_linesearch
-from .utils.flatten import TrainableRavel, tree_map
+from .utils.flatten import TrainableRavel, tree_flatten, tree_map
 
 
 class HFState(NamedTuple):
@@ -270,6 +281,7 @@ def hf_step(
     config: HFConfig,
     ravel: TrainableRavel,
     precond_diag: Optional[torch.Tensor] = None,
+    precond_exponent: float = 0.75,
     precond_lowrank: Any = None,
     M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     grad_vec: Optional[torch.Tensor] = None,
@@ -277,18 +289,41 @@ def hf_step(
 ) -> Tuple[Any, HFState, HFStats]:
     """One Hessian-free update (reference optimizer.py:126-363).
 
-    ``M`` is an optional preconditioner matvec on flat vectors; custom
+    ``M`` is an optional preconditioner matvec on flat vectors.  Without
+    it, ``precond_diag`` (an empirical-Fisher diagonal) gives Martens'
+    ``(D + damping)^(-precond_exponent)`` with the *live* damping; without
+    either, ``config.precond="diag_ef"`` computes the diagonal from this
+    step's batch and uses ``config.precond_exponent``.  Custom
     ``grad_vec`` / ``mvp_vec`` override the derived gradient and curvature
     matvec.  ``config.matmul_precision`` sets the TF32 switches for the
     whole step.
     """
-    if precond_diag is not None or precond_lowrank is not None:
-        raise not_ported("Preconditioning (precond_diag, precond_lowrank)",
-                          "items 9 and 18")
+    if precond_lowrank is not None:
+        raise not_ported("Low-rank preconditioning (precond_lowrank)",
+                         "item 18")
     with precision_ctx(config):
         loss, derived_grad, derived_mvp = _build_matvec_and_grad(
             fns, config, ravel, params, batch
         )
+
+        if M is None and precond_diag is not None:
+            M = diag_to_preconditioner(
+                precond_diag, state.damping, precond_exponent
+            )
+        elif M is None and config.precond == "diag_ef":
+            if fns.model_fn is None:
+                raise ValueError(
+                    "precond='diag_ef' requires the split model form "
+                    "(per-sample gradients need model_fn + loss_outer)."
+                )
+            inputs, targets = batch
+            diag = diag_EF(
+                fns.model_fn, fns.loss_outer, params, inputs, targets,
+                config.precond_reduction, ravel, loss_reg=fns.loss_reg,
+            )
+            M = diag_to_preconditioner(
+                diag, state.damping, config.precond_exponent
+            )
 
         def loss_at(delta):
             return fns.full_loss(ravel.add(params, delta), batch)
@@ -306,25 +341,343 @@ def hf_step(
         )
 
 
-def make_hf_step(fns: HFModelFns, config: HFConfig, ravel: TrainableRavel):
-    """``step(params, state, batch) -> (params, state, stats)``: the
-    counterpart of the JAX package's jitted step (PyTorch runs it eagerly)."""
+def make_hf_step(
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    precond_exponent: float = 0.75,
+):
+    """``step(params, state, batch, precond_diag=None) -> (params, state,
+    stats)``: the counterpart of the JAX package's jitted step (PyTorch runs
+    it eagerly)."""
 
     def step(params, state, batch, precond_diag=None, precond_lowrank=None):
+        if precond_diag is not None and precond_lowrank is not None:
+            raise ValueError(
+                "Pass either precond_diag or precond_lowrank, not both."
+            )
         return hf_step(
             params, state, batch, fns=fns, config=config, ravel=ravel,
-            precond_diag=precond_diag, precond_lowrank=precond_lowrank,
+            precond_diag=precond_diag, precond_exponent=precond_exponent,
+            precond_lowrank=precond_lowrank,
         )
 
     return step
 
 
+def _stack_stats(per_step) -> HFStats:
+    """Per-step :class:`HFStats` -> one whose fields have a leading steps
+    axis.  Fields that the host already read (CG counts, flags) become CPU
+    tensors."""
+    fields = {}
+    for name in HFStats._fields:
+        if name == "detail":
+            continue
+        values = [getattr(s, name) for s in per_step]
+        if isinstance(values[0], torch.Tensor):
+            fields[name] = torch.stack(values)
+        else:
+            fields[name] = torch.tensor(values)
+    return HFStats(**fields)
+
+
+def make_hf_train_loop(
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    precond_exponent: float = 0.75,
+    precond_ema_decay: Optional[float] = None,
+):
+    """Steps over a stacked batch: ``loop(params, state, batches)`` runs one
+    :func:`hf_step` per slice of the leading steps axis of ``batches``
+    (leaves ``[T, N, ...]``) and returns ``(params, state, stats)`` with
+    stacked :class:`HFStats`.  The JAX package's ``lax.scan`` program is a
+    Python loop here.
+
+    ``precond_ema_decay``: keep an exponential moving average of each
+    step's empirical-Fisher diagonal and precondition every CG solve with
+    it (split model form only).  The loop then takes and returns the EMA,
+    an :class:`EMADiag`, ``loop(params, state, batches, ema=None) ->
+    (params, state, stats, ema)``, so it carries across calls; ``None``
+    starts a fresh ``EMADiag(precond_ema_decay)``.  An EMA is seeded by its
+    first diagonal, not by ``step_count``, so a loop resumed from a
+    checkpoint seeds a fresh EMA with its first diagonal.
+    """
+    if precond_ema_decay is not None:
+        if not 0.0 <= precond_ema_decay < 1.0:
+            raise ValueError(f"Invalid decay {precond_ema_decay}")
+        if fns.model_fn is None or fns.loss_outer is None:
+            raise ValueError(
+                "precond_ema_decay requires the split model form "
+                "(per-sample gradients need model_fn + loss_outer)."
+            )
+    use_ema = precond_ema_decay is not None
+
+    def loop(params, state, batches, ema=None):
+        if use_ema and ema is None:
+            ema = EMADiag(precond_ema_decay)
+        num_steps = tree_flatten(batches)[0][0].shape[0]
+        per_step = []
+        for i in range(num_steps):
+            batch = tree_map(lambda a: a[i], batches)
+            precond_diag = None
+            if use_ema:
+                inputs, targets = batch
+                with precision_ctx(config):
+                    d = diag_EF(
+                        fns.model_fn, fns.loss_outer, params, inputs,
+                        targets, config.precond_reduction, ravel,
+                        loss_reg=fns.loss_reg,
+                    )
+                precond_diag = ema.update(d)
+            params, state, stats = hf_step(
+                params, state, batch, fns=fns, config=config, ravel=ravel,
+                precond_diag=precond_diag, precond_exponent=precond_exponent,
+            )
+            per_step.append(stats)
+        stats = _stack_stats(per_step)
+        if use_ema:
+            return params, state, stats, ema
+        return params, state, stats
+
+    return loop
+
+
+def hf_acc_step(
+    params: Any,
+    state: HFState,
+    *,
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    loss_data,
+    grad_data=None,
+    mvp_data=None,
+    reduction: str = "mean",
+    M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    precond_diag: Optional[torch.Tensor] = None,
+    precond_exponent: float = 0.75,
+    mvp_amortize: bool = False,
+) -> Tuple[Any, HFState, HFStats]:
+    """Accumulated Hessian-free update (reference optimizer.py:519-606).
+
+    Loss, gradient and curvature matvec are accumulated over their own
+    datalists (``grad_data`` and ``mvp_data`` default to ``loss_data``)
+    with the weighted-sum semantics of :mod:`.accumulate`.  Every CG
+    iteration forms the curvature products chunk by chunk, as the
+    reference does; ``mvp_amortize=True`` (GGN, stacked data) linearizes
+    once per step instead.  ``config.matmul_precision`` applies to the
+    whole step.
+    """
+    if config.precond == "diag_ef":
+        raise ValueError(
+            "precond='diag_ef' (in-step diagonal from the step's own batch) "
+            "is a single-batch feature; for accumulated steps compute the "
+            "diagonal explicitly (diag_EF / EMADiag) and pass precond_diag."
+        )
+    if grad_data is None:
+        grad_data = loss_data
+    if mvp_data is None:
+        mvp_data = loss_data
+
+    with precision_ctx(config):
+        init_loss = acc.acc_loss(fns, params, loss_data, reduction)
+        grad_vec = acc.acc_grad(fns, params, grad_data, reduction, ravel)
+        mvp_vec = acc.make_acc_mvp(
+            fns, config, params, mvp_data, reduction, ravel,
+            amortize=mvp_amortize,
+        )
+        if M is None and precond_diag is not None:
+            M = diag_to_preconditioner(
+                precond_diag, state.damping, precond_exponent
+            )
+
+        def loss_at(delta):
+            return acc.acc_loss(
+                fns, ravel.add(params, delta), loss_data, reduction
+            )
+
+        return _step_core(
+            config,
+            ravel,
+            params,
+            state,
+            init_loss=init_loss,
+            grad_vec=grad_vec,
+            mvp_vec=mvp_vec,
+            loss_at=loss_at,
+            M=M,
+        )
+
+
+def make_hf_acc_step(
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    reduction: str = "mean",
+    precond_exponent: float = 0.75,
+    mvp_amortize: bool = False,
+):
+    """``step(params, state, loss_data, grad_data=None, mvp_data=None,
+    precond_diag=None) -> (params, state, stats)``."""
+
+    def step(params, state, loss_data, grad_data=None, mvp_data=None,
+             precond_diag=None):
+        return hf_acc_step(
+            params, state, fns=fns, config=config, ravel=ravel,
+            loss_data=loss_data, grad_data=grad_data, mvp_data=mvp_data,
+            reduction=reduction, precond_diag=precond_diag,
+            precond_exponent=precond_exponent, mvp_amortize=mvp_amortize,
+        )
+
+    return step
+
+
+# -- debug self-tests (reference optimizer.py:365-448, :817-926) -------------
+
+
+def _random_vector(ravel: TrainableRavel, generator: Optional[torch.Generator]):
+    """A standard-normal flat vector drawn on the generator's device (seed 0
+    if none is given) and moved to the ravel's device, so the same seed
+    gives the same vector on every device."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    v = torch.randn(ravel.dim, generator=generator, device=generator.device,
+                    dtype=ravel.dtype)
+    return v.to(ravel.device)
+
+
+def check_deterministic(
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    params: Any,
+    batch: Any,
+    generator: Optional[torch.Generator] = None,
+    fns_factory: Optional[Callable[[torch.Generator], HFModelFns]] = None,
+    batch_factory: Optional[Callable[[], Any]] = None,
+) -> dict:
+    """Look for randomness that would break CG's fixed quadratic model
+    (reference optimizer.py:365-448); returns a dict of booleans.
+
+    - ``forward_deterministic`` / ``outputs_deterministic``: two
+      evaluations of the loss and of the model agree;
+    - ``mvp_deterministic``: two curvature matvecs of one random vector
+      (drawn from ``generator``, seed 0 by default) agree;
+    - ``rng_invariant`` (with ``fns_factory(generator) -> HFModelFns``):
+      the fns built from two generators give the same loss.  A model whose
+      loss depends on its generator must fix it for a whole step (as
+      :func:`~.models.mlp.mlp_dropout_apply` does with a seed in the
+      batch) or turn dropout off;
+    - ``data_reproducible`` (with ``batch_factory() -> batch``): two calls
+      give equal batches leaf by leaf.
+    """
+    results = {}
+    loss1 = fns.full_loss(params, batch)
+    loss2 = fns.full_loss(params, batch)
+    results["forward_deterministic"] = bool(torch.allclose(loss1, loss2))
+    if fns.model_fn is not None:
+        inputs, _ = batch
+        out1 = tree_flatten(fns.model_fn(params, inputs))[0]
+        out2 = tree_flatten(fns.model_fn(params, inputs))[0]
+        results["outputs_deterministic"] = all(
+            bool(torch.allclose(a, b)) for a, b in zip(out1, out2)
+        )
+
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    v = _random_vector(ravel, generator)
+    with precision_ctx(config):
+        _, _, mvp = _build_matvec_and_grad(fns, config, ravel, params, batch)
+        results["mvp_deterministic"] = bool(torch.allclose(mvp(v), mvp(v)))
+
+    if fns_factory is not None:
+        seeds = torch.randint(2**62, (2,), generator=generator,
+                              device=generator.device).tolist()
+        la, lb = (
+            fns_factory(
+                torch.Generator(device=generator.device).manual_seed(s)
+            ).full_loss(params, batch)
+            for s in seeds
+        )
+        results["rng_invariant"] = bool(torch.allclose(la, lb))
+
+    if batch_factory is not None:
+        leaves1 = tree_flatten(batch_factory())[0]
+        leaves2 = tree_flatten(batch_factory())[0]
+
+        def leaves_equal(a, b):
+            # leaves may be plain Python scalars
+            a, b = torch.as_tensor(a), torch.as_tensor(b)
+            return a.shape == b.shape and bool(torch.allclose(a, b))
+
+        results["data_reproducible"] = len(leaves1) == len(leaves2) and all(
+            leaves_equal(a, b) for a, b in zip(leaves1, leaves2)
+        )
+    return results
+
+
+def check_reduction(
+    fns: HFModelFns,
+    config: HFConfig,
+    ravel: TrainableRavel,
+    params: Any,
+    datalist,
+    reduction: str,
+    rtol: float = 1e-2,
+    atol: float = 1e-4,
+    generator: Optional[torch.Generator] = None,
+) -> None:
+    """Check the loss's declared reduction ("mean" or "sum") (reference
+    optimizer.py:817-926): loss, gradient and matvec accumulated over the
+    datalist (two chunks or more) must match the same quantities on the
+    concatenated batch within ``rtol`` / ``atol``; raises ``RuntimeError``
+    otherwise.  The bound is entry-wise: on a full-width f32 All-CNN-C on
+    the GPU, the chunked and concatenated matvecs of a correct "mean"
+    differ by more than ``atol`` in near-zero entries, so it raises there
+    too; run it on an f64 copy of the model and data."""
+    if len(acc._chunks(datalist)) <= 1:
+        raise AssertionError(
+            "This test is only meaningful for a data list with at least two "
+            "entries."
+        )
+    v = _random_vector(ravel, generator)
+    with precision_ctx(config):
+        a_loss = acc.acc_loss(fns, params, datalist, reduction)
+        a_grad = acc.acc_grad(fns, params, datalist, reduction, ravel)
+        a_mvp = acc.make_acc_mvp(
+            fns, config, params, datalist, reduction, ravel
+        )(v)
+        r_loss, r_grad, r_mvp_fn = _build_matvec_and_grad(
+            fns, config, ravel, params, acc.concat_datalist(datalist)
+        )
+        r_mvp = r_mvp_fn(v)
+
+    failures = [
+        name
+        for name, ref, got in (
+            ("loss values", r_loss, a_loss),
+            ("gradients", r_grad, a_grad),
+            ("mvps", r_mvp, a_mvp),
+        )
+        if not bool(torch.allclose(got, ref, rtol=rtol, atol=atol))
+    ]
+    if failures:
+        raise RuntimeError(
+            f"Inconsistent results for reduction {reduction} "
+            f"(mismatched: {', '.join(failures)}). The loss function's "
+            "reduction does not match the declared one."
+        )
+
+
 class HessianFree:
     """Stateful Hessian-free optimizer owning the parameter tree.
 
-    Construct once and call :meth:`step` per batch; the per-step history
-    (reference optimizer.py:186-192) accumulates in ``self.history`` and
-    :meth:`state_dict` round-trips it with the optimizer state.
+    Construct once and call :meth:`step` per batch (or :meth:`acc_step`
+    per datalist, :meth:`train_steps` per stacked batch); the per-step
+    history (reference optimizer.py:186-192) accumulates in
+    ``self.history`` and :meth:`state_dict` round-trips it with the
+    optimizer state.
 
     Args:
         params: Initial parameter tree (a private detached copy is kept).
@@ -372,6 +725,8 @@ class HessianFree:
             self.params, trainable, pad_to_multiple=pad_to_multiple
         )
         self.state = init_state(self.ravel, config)
+        # EMA diagonals of train_steps, one EMADiag per decay
+        self._ema_states: dict = {}
         self.last_stats: Optional[HFStats] = None
         self.history = {
             "init_losses": [],
@@ -383,15 +738,24 @@ class HessianFree:
             "learning_rates": [],
         }
 
-    def _record(self, stats: HFStats) -> float:
+    def _append_history(self, stats: HFStats, i=None):
+        """Append one step to the history; ``i`` indexes stacked stats."""
+        if i is not None:
+            stats = HFStats(*(
+                None if v is None else v[i] for v in stats
+            ))
         h = self.history
         h["init_losses"].append(float(stats.init_loss))
         h["final_losses"].append(float(stats.final_loss))
         h["dampings"].append(float(stats.damping))
-        h["cg_reasons"].append(CG_REASON_STRINGS[stats.cg_reason])
-        h["num_cg_iters"].append(stats.num_cg_iters)
-        h["best_cg_iters"].append(stats.best_cg_iter)
+        h["cg_reasons"].append(CG_REASON_STRINGS[int(stats.cg_reason)])
+        h["num_cg_iters"].append(int(stats.num_cg_iters))
+        h["best_cg_iters"].append(int(stats.best_cg_iter))
         h["learning_rates"].append(float(stats.lr))
+
+    def _record(self, stats: HFStats) -> float:
+        h = self.history
+        self._append_history(stats)
         self.last_stats = stats
         if self.config.verbose:
             flags = [
@@ -429,25 +793,120 @@ class HessianFree:
     ) -> float:
         """One update on ``batch``; returns the final mini-batch loss
         (reference optimizer.py:126-363).  ``M``, ``grad_vec`` and ``mvp``
-        are the reference's ``M_func``, ``grad`` and ``mvp`` arguments."""
+        are the reference's ``M_func``, ``grad`` and ``mvp`` arguments;
+        ``precond_diag`` (from :meth:`get_preconditioner`) is preconditioned
+        with ``config.precond_exponent`` and the live damping.
+        ``test_deterministic=True`` runs :meth:`test_deterministic` first and
+        warns if it finds randomness."""
         if test_deterministic:
-            raise not_ported("test_deterministic", "item 11")
+            self._warn_if_nondeterministic(batch)
+        if M is not None and precond_diag is not None:
+            raise ValueError("Pass either M or precond_diag, not both.")
         self.params, self.state, stats = hf_step(
             self.params, self.state, batch, fns=self.fns, config=self.config,
             ravel=self.ravel, precond_diag=precond_diag,
+            precond_exponent=self.config.precond_exponent,
             precond_lowrank=precond_lowrank, M=M, grad_vec=grad_vec,
             mvp_vec=mvp,
         )
         return self._record(stats)
 
-    def acc_step(self, *args, **kwargs) -> float:
-        raise not_ported("acc_step", "item 11")
+    def _warn_if_nondeterministic(self, batch) -> None:
+        res = self.test_deterministic(batch)
+        if not all(res.values()):
+            warnings.warn(
+                "Non-deterministic behaviour detected "
+                f"({res}). CG's quadratic model assumes a fixed batch "
+                "and deterministic model."
+            )
 
-    def train_steps(self, *args, **kwargs):
-        raise not_ported("train_steps", "item 13")
+    def acc_step(
+        self,
+        loss_data,
+        grad_data=None,
+        mvp_data=None,
+        reduction: str = "mean",
+        precond_diag: Optional[torch.Tensor] = None,
+        test_deterministic: bool = False,
+        mvp_amortize: bool = False,
+    ) -> float:
+        """Accumulated step over datalists (reference optimizer.py:519-606);
+        see :func:`hf_acc_step`.  ``test_deterministic=True`` checks the
+        first chunk of ``loss_data`` and warns."""
+        if test_deterministic:
+            self._warn_if_nondeterministic(acc._chunks(loss_data)[0])
+        self.params, self.state, stats = hf_acc_step(
+            self.params, self.state, fns=self.fns, config=self.config,
+            ravel=self.ravel, loss_data=loss_data, grad_data=grad_data,
+            mvp_data=mvp_data, reduction=reduction, precond_diag=precond_diag,
+            precond_exponent=self.config.precond_exponent,
+            mvp_amortize=mvp_amortize,
+        )
+        return self._record(stats)
 
-    def get_preconditioner(self, *args, **kwargs):
-        raise not_ported("get_preconditioner", "item 9")
+    def train_steps(self, batches, precond_ema_decay=None):
+        """Run one step per slice of the leading steps axis of ``batches``
+        (leaves ``[T, N, ...]``) through :func:`make_hf_train_loop`; appends
+        every step to :attr:`history` and returns the final losses.
+
+        ``precond_ema_decay``: precondition every CG solve with an EMA of
+        the empirical-Fisher diagonals.  The EMA persists across calls, one
+        per decay value (switching decays does not continue another decay's
+        average)."""
+        loop = make_hf_train_loop(
+            self.fns, self.config, self.ravel,
+            precond_exponent=self.config.precond_exponent,
+            precond_ema_decay=precond_ema_decay,
+        )
+        if precond_ema_decay is None:
+            self.params, self.state, stats = loop(
+                self.params, self.state, batches
+            )
+        else:
+            self.params, self.state, stats, ema = loop(
+                self.params, self.state, batches,
+                self._ema_states.get(precond_ema_decay),
+            )
+            self._ema_states[precond_ema_decay] = ema
+        for i in range(stats.init_loss.shape[0]):
+            self._append_history(stats, i)
+        self.last_stats = stats
+        return [float(v) for v in stats.final_loss]
+
+    def get_preconditioner(
+        self,
+        inputs: Any,
+        targets: Any,
+        reduction: str,
+        use_scan: bool = False,
+    ) -> torch.Tensor:
+        """Empirical-Fisher diagonal at the current params; pass it to
+        :meth:`step` or :meth:`acc_step` as ``precond_diag``.  The step
+        builds ``(D + damping)^(-config.precond_exponent)`` with the live
+        damping.  (The reference's method of this name returns ``None``;
+        this one returns the diagonal, as the JAX package's does.)"""
+        fn = diag_EF_scan if use_scan else diag_EF
+        with precision_ctx(self.config):
+            return fn(
+                self.fns.model_fn, self.fns.loss_outer, self.params, inputs,
+                targets, reduction, self.ravel, loss_reg=self.fns.loss_reg,
+            )
+
+    def test_reduction(self, datalist, reduction: str) -> None:
+        """Raise ``RuntimeError`` if the loss's reduction is not
+        ``reduction`` (see :func:`check_reduction`)."""
+        check_reduction(
+            self.fns, self.config, self.ravel, self.params, datalist, reduction
+        )
+
+    def test_deterministic(
+        self, batch, fns_factory=None, batch_factory=None
+    ) -> dict:
+        """See :func:`check_deterministic`."""
+        return check_deterministic(
+            self.fns, self.config, self.ravel, self.params, batch,
+            fns_factory=fns_factory, batch_factory=batch_factory,
+        )
 
     def get_nystrom_sketch(self, *args, **kwargs):
         raise not_ported("get_nystrom_sketch", "item 18")

@@ -151,6 +151,22 @@ class TrainableRavel:
             parts.append(parts[0].new_zeros(self._pad))
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
+    def ravel_rows(self, tree: Any) -> torch.Tensor:
+        """A tree whose leaves carry a leading axis of ``N`` (per-sample
+        gradients) -> ``[N, dim]``; row ``i`` is :meth:`ravel` of slice
+        ``i``."""
+        leaves, _ = tree_flatten(tree)
+        self._check_leaves(leaves)
+        n = leaves[0].shape[0]
+        parts = [
+            leaf.reshape(n, -1).to(self.dtype)
+            for leaf, m in zip(leaves, self._mask)
+            if m
+        ]
+        if self._pad:
+            parts.append(parts[0].new_zeros((n, self._pad)))
+        return torch.cat(parts, dim=1)
+
     def _views(self, vec: torch.Tensor):
         """Per-leaf views of ``vec`` (``None`` for frozen leaves)."""
         self._check_len(vec)

@@ -70,7 +70,6 @@ def test_zero_damping_disables_adaptation_like_jax():
     [
         ("HFConfig", dict(curvature_dtype="bfloat16")),
         ("HFConfig", dict(remat=True)),
-        ("HFConfig", dict(precond="diag_ef")),
         ("HFConfig", dict(rich_stats=True)),
         ("HFConfig", dict(backtracking_mode="batched")),
         ("CGConfig", dict(store_dtype="bfloat16")),

@@ -1,5 +1,6 @@
 """The CUDA kernel on a card: ``fused_cg_update`` against its plain version,
-and CG on the card against CG on the CPU.
+CG (plain and preconditioned) on the card against CG on the CPU, and the
+empirical-Fisher diagonal on the card against the CPU.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -13,11 +14,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from pytorchhessianfree_tpu_torch import cg  # noqa: E402
+from pytorchhessianfree_tpu_torch import (  # noqa: E402
+    TrainableRavel,
+    cg,
+    diag_EF,
+    diag_EF_scan,
+    diag_to_preconditioner,
+)
+from pytorchhessianfree_tpu_torch.models import (  # noqa: E402
+    allcnnc_apply,
+    cross_entropy_loss,
+    init_allcnnc,
+    l2_regularizer,
+)
 from pytorchhessianfree_tpu_torch.ops.cg_update import (  # noqa: E402
     fused_cg_update,
     fused_cg_update_reference,
 )
+from pytorchhessianfree_tpu_torch.utils.flatten import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +100,45 @@ def test_cg_on_card_matches_cpu(cuda):
                                rtol=1e-9, atol=0)
     err = torch.linalg.vector_norm(gpu.x.cpu() - cpu.x)
     assert err <= 1e-9 * torch.linalg.vector_norm(cpu.x)
+
+
+def test_preconditioned_cg_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(1)
+    n = 512
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = (q * np.geomspace(1.0, 20.0, n)) @ q.T + np.diag(np.geomspace(
+        0.1, 10.0, n))
+    b = rng.standard_normal(n)
+    diag = np.abs(np.diag(a))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        A = torch.tensor(a, device=dev)
+        M = diag_to_preconditioner(torch.tensor(diag, device=dev), 0.5, 0.75)
+        out.append(cg(lambda v: A @ v, torch.tensor(b, device=dev), M=M,
+                      max_iter=40, martens_conv_crit=True,
+                      store_x_at_iters=None))
+    gpu, cpu = out
+    assert (gpu.num_iters, gpu.reason) == (cpu.num_iters, cpu.reason)
+    k = gpu.num_iters
+    torch.testing.assert_close(gpu.m_hist[: k + 1].cpu(), cpu.m_hist[: k + 1],
+                               rtol=1e-9, atol=0)
+    err = torch.linalg.vector_norm(gpu.x.cpu() - cpu.x)
+    assert err <= 1e-9 * torch.linalg.vector_norm(cpu.x)
+
+
+@pytest.mark.parametrize("use_scan", [False, True])
+def test_diag_EF_on_card_matches_cpu(cuda, use_scan):
+    gen = torch.Generator().manual_seed(0)
+    params = init_allcnnc(gen, width_scale=1 / 8, dtype=torch.float64)
+    x = torch.randn((6, 32, 32, 3), generator=gen, dtype=torch.float64)
+    y = torch.randint(0, 100, (6,), generator=gen)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        fn = diag_EF_scan if use_scan else diag_EF
+        out.append(fn(allcnnc_apply, cross_entropy_loss, p, x.to(dev),
+                      y.to(dev), "mean", TrainableRavel(p, pad_to_multiple=1024),
+                      loss_reg=l2_regularizer))
+    gpu, cpu = out
+    assert gpu.device.type == "cuda"
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-10, atol=1e-300)

@@ -16,6 +16,10 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import pytorchhessianfree_tpu_torch as pkg
 import pytorchhessianfree_tpu_torch.convert
 import pytorchhessianfree_tpu_torch.models
+import pytorchhessianfree_tpu_torch.accumulate
+import pytorchhessianfree_tpu_torch.ops.precond
+import pytorchhessianfree_tpu_torch.models.allcnnc
+import pytorchhessianfree_tpu_torch.models.targetfunc
 import pytorchhessianfree_tpu_torch._build
 assert "pytorchhessianfree_tpu" not in sys.modules
 print(len(pkg.__all__))

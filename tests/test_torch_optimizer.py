@@ -73,6 +73,28 @@ def _j_mse(o, t):
     return jnp.mean((o - t) ** 2)
 
 
+def assert_vec_close(actual, expected, rtol):
+    """Norm-wise relative closeness of two flat numpy vectors."""
+    err = np.linalg.norm(actual - expected)
+    assert err <= rtol * np.linalg.norm(expected), (err, rtol)
+
+
+def assert_same_step(t_opt, j_opt, param_rtol):
+    """Two ``HessianFree`` wrappers, the port's and JAX's, after the same
+    steps: identical CG iterations, reasons, best iterates and dampings,
+    and parameters within ``param_rtol`` (norm-wise)."""
+    th, jh = t_opt.history, j_opt.history
+    for key in ("num_cg_iters", "cg_reasons", "best_cg_iters"):
+        assert th[key] == jh[key], key
+    np.testing.assert_allclose(th["dampings"], jh["dampings"], rtol=1e-12)
+    np.testing.assert_allclose(float(t_opt.state.damping),
+                               float(j_opt.state.damping), rtol=1e-12)
+    np.testing.assert_allclose(th["final_losses"], jh["final_losses"],
+                               rtol=param_rtol)
+    assert_vec_close(t_opt.ravel.ravel(t_opt.params).numpy(),
+                     np.asarray(j_opt.ravel.ravel(j_opt.params)), param_rtol)
+
+
 def _run_both(j_fns, t_fns, j_cfg, t_cfg, jparams, tparams, j_batch, t_batch,
               steps, trainable=None):
     jr = jhf.TrainableRavel(jparams, trainable)
@@ -238,18 +260,16 @@ def test_wrapper_refuses_what_is_not_ported():
                           loss_outer=mse_loss)
     batch = (torch.tensor(x), torch.tensor(y))
     for call in (
-        lambda: opt.acc_step([batch]),
-        lambda: opt.train_steps([batch]),
-        lambda: opt.get_preconditioner(batch),
         lambda: opt.get_nystrom_sketch(batch),
         lambda: opt.estimate_spectrum(batch),
-        lambda: opt.step(batch, test_deterministic=True),
-        lambda: opt.step(batch, precond_diag=torch.ones(opt.ravel.dim)),
+        lambda: opt.step(batch, precond_lowrank=object()),
         lambda: thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
                                 loss_outer=mse_loss, mesh=object()),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    with pytest.raises(ValueError, match="either M or precond_diag"):
+        opt.step(batch, M=lambda v: v, precond_diag=torch.ones(opt.ravel.dim))
     with pytest.raises(ValueError, match="model_fn"):
         thf.HessianFree(params_from_jax(params))
     with pytest.raises(ValueError, match="either config"):
