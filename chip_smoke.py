@@ -29,16 +29,36 @@ prints no ``ok`` line:
    in f32, each preconditioned with an EMA of ``get_preconditioner``'s
    diagonal, after the reduction self-test; with the kernel's launch count
    checked against the CG iterations, and the times of a step, of the
-   diagonal and of one accumulated matvec.
+   diagonal and of one accumulated matvec;
+9. the narrow decoder LM and MoE LM (d_model 32, 2 layers, vocab 32, T 16):
+   2 HF steps each on the card against the same steps on the CPU in f64,
+   and the narrow encoder classifier's forward on both;
+10. the full-width decoder LM (19,505,152 parameters, batch 32 x T 128 of
+    the affine next-token rule on vocab 1024, GGN,
+    ``HFConfig(damping=1.0, cg_max_iter=50)``, f32): 3 steps, the build,
+    matvec and peak memory, a bf16-curvature step from the same start with
+    its matvec held against f32, and a T 1024 point whose chunked matvecs
+    (linearized; one-shot; one-shot and rematerialized) are held against
+    full attention, with the peak memory of each;
+11. the full-width MoE decoder LM (8 experts, top-2, capacity 1.25, one
+    router group; 107,717,632 parameters): 2 steps, matvec and peak memory.
 
-The ``kernels`` line counts the kernel's launches on the two paths (phases
-6 and 8); the launches of the comparisons do not count.
+Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
+trace of 5 matvecs.
+
+Phase 3 also holds the kernel against its plain version at the flat
+dimensions of phases 10 and 11 and times it at the n of each path beside
+its bound.  The ``kernels`` line counts the kernel's launches on the four
+paths (phases 6, 8, 10 and 11); the launches of the comparisons do not
+count.
 
 It needs a CUDA device and ``nvcc`` (the CUDA toolkit), and imports no JAX.
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import math
 import statistics
@@ -51,13 +71,21 @@ import torch
 import pytorchhessianfree_tpu_torch as pkg
 from pytorchhessianfree_tpu_torch import _build, accumulate, models, optimizer
 from pytorchhessianfree_tpu_torch.ops import cg_update as ops
+from pytorchhessianfree_tpu_torch.ops.curvature import ggnvp, value_and_grad
 from pytorchhessianfree_tpu_torch.utils.flatten import tree_flatten, tree_map
 
 MAIN_N = 11_175_936  # ResNet-18/MNIST flat dimension, padded to 1024
 ALLCNNC_PARAMS = 1_387_108
 ALLCNNC_N = 1_387_520  # All-CNN-C/CIFAR-100 flat dimension, padded to 1024
+DENSE_LM_N = 19_505_152  # decoder LM parameters = flat dimension
+MOE_N = 107_717_632  # MoE decoder LM parameters = flat dimension
+PATH_N = {"ResNet-18": MAIN_N, "All-CNN-C": ALLCNNC_N,
+          "decoder LM": DENSE_LM_N, "MoE LM": MOE_N}
 NARROW_SEED = 0  # phase 7's weights and batch
 RAGGED_N = 1_000_003
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# benchmarks/decoder_lm_bench.py and moe_lm_bench.py
+LM = dict(vocab=1024, d_model=512, n_heads=8, n_layers=6, d_ff=2048)
 RTOL_VEC = {torch.float32: 1e-6, torch.float64: 1e-13}  # FMA contraction
 RTOL_DOT = {torch.float32: 1e-5, torch.float64: 1e-12}  # summation order
 
@@ -95,47 +123,62 @@ def kernel_inputs(n, dtype, seed):
     return x, r, p, Ap, b, alpha
 
 
-def phase_kernel():
-    """Kernel against plain on the card, at the n of both paths and a
-    ragged n; returns the main-size f32 record."""
-    record = {}
-    for n in (MAIN_N, ALLCNNC_N, RAGGED_N):
-        for dtype in (torch.float32, torch.float64):
-            args = kernel_inputs(n, dtype, seed=n % 1000)
-            ref = ops.fused_cg_update_reference(*args)
-            out = ops.fused_cg_update(*args)
-            again = ops.fused_cg_update(*args)
-            torch.cuda.synchronize()
-            errs = [
-                close(out[0], ref[0], RTOL_VEC[dtype], "x'"),
-                close(out[1], ref[1], RTOL_VEC[dtype], "r'"),
-                close(out[2], ref[2], RTOL_DOT[dtype], "m"),
-                close(out[3], ref[3], RTOL_DOT[dtype], "rr"),
-            ]
-            if not (torch.equal(out[2], again[2])
-                    and torch.equal(out[3], again[3])):
-                raise AssertionError("m / rr differ between two launches")
-            print(f"kernel vs plain n={n} {str(dtype)[6:]}: max abs err "
-                  f"x' {errs[0]:.3e} r' {errs[1]:.3e} m {errs[2]:.3e} "
-                  f"rr {errs[3]:.3e}; m, rr bitwise reproducible")
-            if n == MAIN_N and dtype == torch.float32:
-                record["max_abs_err"] = max(errs)
-                main_args = args
+def kernel_bound_ms(n):
+    """The least time for one call at 4-byte entries: five vectors read and
+    two written, over the card's memory rate."""
+    return 7 * 4 * n / HBM_BYTES_PER_S * 1e3
 
-    kernel = lambda: ops.fused_cg_update(*main_args)  # noqa: E731
-    plain = lambda: ops.fused_cg_update_reference(*main_args)  # noqa: E731
-    cuda_ms(kernel, 5)  # warm up
-    cuda_ms(plain, 5)
-    # in turns: plain, kernel, kernel, plain
-    plain_t = cuda_ms(plain, 25)
-    kernel_t = cuda_ms(kernel, 25) + cuda_ms(kernel, 25)
-    plain_t += cuda_ms(plain, 25)
-    record["ms"] = statistics.median(kernel_t)
-    record["plain_ms"] = statistics.median(plain_t)
-    print(f"fused_cg_update n={MAIN_N} f32, median of 50 CUDA-event-timed "
-          f"calls: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f}"
-          f" ms (kernel moves {7 * 4 * MAIN_N / 1e6:.0f} MB: "
-          f"{7 * 4 * MAIN_N / record['ms'] / 1e6:.0f} GB/s)")
+
+def phase_kernel():
+    """Kernel against plain on the card, at the n of every path and a
+    ragged n, and its time at the n of every path; returns the main-size
+    f32 record."""
+    record = {}
+    checks = [(n, dtype) for n in (MAIN_N, ALLCNNC_N, RAGGED_N, DENSE_LM_N)
+              for dtype in (torch.float32, torch.float64)]
+    checks.append((MOE_N, torch.float32))
+    for n, dtype in checks:
+        args = kernel_inputs(n, dtype, seed=n % 1000)
+        ref = ops.fused_cg_update_reference(*args)
+        out = ops.fused_cg_update(*args)
+        again = ops.fused_cg_update(*args)
+        torch.cuda.synchronize()
+        errs = [
+            close(out[0], ref[0], RTOL_VEC[dtype], "x'"),
+            close(out[1], ref[1], RTOL_VEC[dtype], "r'"),
+            close(out[2], ref[2], RTOL_DOT[dtype], "m"),
+            close(out[3], ref[3], RTOL_DOT[dtype], "rr"),
+        ]
+        if not (torch.equal(out[2], again[2])
+                and torch.equal(out[3], again[3])):
+            raise AssertionError("m / rr differ between two launches")
+        print(f"kernel vs plain n={n} {str(dtype)[6:]}: max abs err "
+              f"x' {errs[0]:.3e} r' {errs[1]:.3e} m {errs[2]:.3e} "
+              f"rr {errs[3]:.3e}; m, rr bitwise reproducible")
+        if n == MAIN_N and dtype == torch.float32:
+            record["max_abs_err"] = max(errs)
+        del args, ref, out, again
+
+    for path, n in PATH_N.items():
+        args = kernel_inputs(n, torch.float32, seed=1)
+        kernel = functools.partial(ops.fused_cg_update, *args)
+        plain = functools.partial(ops.fused_cg_update_reference, *args)
+        cuda_ms(kernel, 5)  # warm up
+        cuda_ms(plain, 5)
+        # in turns: plain, kernel, kernel, plain
+        plain_t = cuda_ms(plain, 25)
+        kernel_t = cuda_ms(kernel, 25) + cuda_ms(kernel, 25)
+        plain_t += cuda_ms(plain, 25)
+        ms, plain_ms = statistics.median(kernel_t), statistics.median(plain_t)
+        bound = kernel_bound_ms(n)
+        print(f"fused_cg_update n={n} f32 ({path}), median of 50 "
+              f"CUDA-event-timed calls: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms (moves "
+              f"{7 * 4 * n / 1e6:.0f} MB: {7 * 4 * n / ms / 1e6:.0f} GB/s, "
+              f"{bound / ms:.0%} of the bound)")
+        if n == MAIN_N:
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        del args, kernel, plain
     return record
 
 
@@ -171,13 +214,13 @@ def phase_cg():
           f"{ex:.3e} m_hist {em:.3e}")
 
 
-def same_history(gpu, cpu):
+def same_history(gpu, cpu, rtols=(1e-9, 1e-6)):
     """Card and CPU runs of the same steps: the same CG decisions, and
-    losses within 1e-9 (step 0) and 1e-6 (step 1)."""
+    losses within ``rtols[i]`` at step i (by default 1e-9 and 1e-6)."""
     for key in ("num_cg_iters", "cg_reasons", "best_cg_iters", "dampings"):
         if gpu[key] != cpu[key]:
             raise AssertionError(f"{key}: card {gpu[key]} CPU {cpu[key]}")
-    for i, rtol in enumerate((1e-9, 1e-6)):
+    for i, rtol in enumerate(rtols):
         for key in ("init_losses", "final_losses"):
             if not math.isclose(gpu[key][i], cpu[key][i], rel_tol=rtol):
                 raise AssertionError(f"{key}[{i}]: {gpu[key]} vs {cpu[key]}")
@@ -208,6 +251,42 @@ def phase_small_slice():
           f"final losses {gpu['final_losses']} vs {cpu['final_losses']}")
 
 
+def run_steps(opt, batch, steps, path):
+    """``steps`` HF steps of ``opt`` on ``batch``, each printed; fails on a
+    non-finite loss, a step whose final loss exceeds its initial loss, or
+    kernel launches other than the CG iterations.  Returns the launches."""
+    first = len(opt.history["init_losses"])
+    ops.fused_cg_update.launches = 0
+    for i in range(first, first + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        s, h = opt.last_stats, opt.history
+        print(f"step {i}: loss {h['init_losses'][i]:.6f} -> "
+              f"{h['final_losses'][i]:.6f} | damping {float(s.damping):.6f} "
+              f"-> {float(s.new_damping):.6f} | cg {s.num_cg_iters} iters "
+              f"({h['cg_reasons'][i]}) | best iter {s.best_cg_iter} | lr "
+              f"{h['learning_rates'][i]:.6f} | {ms:.1f} ms")
+    launches = ops.fused_cg_update.launches
+    h = {k: v[first:] for k, v in opt.history.items()}
+    losses = h["init_losses"] + h["final_losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    for i, (a, b) in enumerate(zip(h["init_losses"], h["final_losses"])):
+        if not b <= a:
+            raise AssertionError(f"step {i}: final loss {b} > init {a}")
+    if launches != sum(h["num_cg_iters"]):
+        raise AssertionError(
+            f"fused_cg_update launched {launches} times for "
+            f"{sum(h['num_cg_iters'])} CG iterations"
+        )
+    print(f"fused_cg_update launches on {path}: {launches} = total CG "
+          f"iterations {h['num_cg_iters']}")
+    return launches
+
+
 def phase_main():
     """The main path: 3 HF steps of full-width ResNet-18/MNIST b32."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -229,34 +308,7 @@ def phase_main():
     print(f"main path: ResNet-18, {count} parameters, flat dim "
           f"{opt.ravel.dim}, batch 32 x 28x28x1, GGN, cg_max_iter=50, f32")
 
-    ops.fused_cg_update.launches = 0
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.step((x, y))
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        s, h = opt.last_stats, opt.history
-        print(f"step {i}: loss {h['init_losses'][i]:.6f} -> "
-              f"{h['final_losses'][i]:.6f} | damping {float(s.damping):.6f} "
-              f"-> {float(s.new_damping):.6f} | cg {s.num_cg_iters} iters "
-              f"({h['cg_reasons'][i]}) | best iter {s.best_cg_iter} | lr "
-              f"{h['learning_rates'][i]:.6f} | {ms:.1f} ms")
-    launches = ops.fused_cg_update.launches
-    h = opt.history
-    losses = h["init_losses"] + h["final_losses"]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    for i, (a, b) in enumerate(zip(h["init_losses"], h["final_losses"])):
-        if not b <= a:
-            raise AssertionError(f"step {i}: final loss {b} > init {a}")
-    if launches != sum(h["num_cg_iters"]):
-        raise AssertionError(
-            f"fused_cg_update launched {launches} times for "
-            f"{sum(h['num_cg_iters'])} CG iterations"
-        )
-    print(f"fused_cg_update launches on the main path: {launches} = total "
-          f"CG iterations {h['num_cg_iters']}")
+    launches = run_steps(opt, (x, y), 3, "the main path")
 
     # GGN matvec time as the step builds it, and the per-matvec jvp form
     # (which recomputes the primal forward in every matvec) beside it
@@ -452,6 +504,257 @@ def phase_allcnnc():
     return launches
 
 
+def affine_tokens(gen, batch, T, vocab, device):
+    """The affine next-token rule of benchmarks/decoder_lm_bench.py:
+    a random first token, then ``t' = (37 t + 11) mod vocab``."""
+    toks = [torch.randint(0, vocab, (batch,), generator=gen,
+                          device=gen.device).to(device)]
+    for _ in range(T - 1):
+        toks.append((37 * toks[-1] + 11) % vocab)
+    return torch.stack(toks, dim=1)
+
+
+def lm_opt(params, apply, **config):
+    """``HessianFree`` on a decoder LM with the next-token loss."""
+    return pkg.HessianFree(
+        params, model_fn=apply, loss_outer=models.next_token_loss,
+        config=pkg.HFConfig(**config), pad_to_multiple=1024,
+    )
+
+
+def gib(nbytes):
+    return nbytes / 2**30
+
+
+def phase_lm_narrow():
+    """The narrow decoder LM and MoE LM, 2 HF steps each on the card and on
+    the CPU in f64, and the narrow encoder classifier's forward."""
+    gen = torch.Generator().manual_seed(NARROW_SEED)
+    narrow = dict(vocab=32, d_model=32, n_layers=2, d_ff=64, max_len=16,
+                  dtype=torch.float64)
+    tokens = affine_tokens(gen, 8, 16, 32, "cpu")
+    lms = (
+        ("decoder LM", models.init_decoder_lm(gen, **narrow),
+         models.decoder_lm_apply),
+        ("MoE LM", models.init_moe_decoder_lm(gen, n_experts=4, **narrow),
+         models.moe_decoder_lm_apply),
+    )
+    for name, params, apply in lms:
+        runs = []
+        for dev in ("cuda", "cpu"):
+            opt = lm_opt(tree_map(lambda t: t.to(dev), params), apply,
+                         damping=1.0, cg_max_iter=10)
+            for _ in range(2):
+                opt.step((tokens.to(dev), tokens.to(dev)))
+            runs.append(opt.history)
+        gpu, cpu = runs
+        same_history(gpu, cpu, rtols=(1e-9, 1e-9))
+        print(f"narrow {name} f64, 2 HF steps card vs CPU: cg iters "
+              f"{gpu['num_cg_iters']} ({gpu['cg_reasons']}), dampings "
+              f"{gpu['dampings']} on both; final losses "
+              f"{gpu['final_losses']} vs {cpu['final_losses']}")
+    params = models.init_transformer(gen, num_classes=4, **narrow)
+    logits = [
+        models.transformer_apply(tree_map(lambda t: t.to(dev), params),
+                                 tokens.to(dev)).cpu()
+        for dev in ("cuda", "cpu")
+    ]
+    err = close(logits[0], logits[1], 1e-10, "encoder logits")
+    print(f"narrow encoder classifier f64 forward card vs CPU: logits "
+          f"{tuple(logits[0].shape)}, max abs err {err:.3e}")
+
+
+def device_busy(fn, calls):
+    """The card's busy share over ``calls`` calls of ``fn`` under
+    ``torch.profiler``, as text: the summed durations of its kernels and
+    copies (one stream, so they do not overlap) over the host clock around
+    the calls, profiler on; "not measured" if the trace holds no device
+    event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # device events only: host events of a whole step would take the
+    # profiler minutes to process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return "not measured (no device event in the trace)"
+    busy = sum(device) / 1e3
+    return f"{busy / wall:.1%} ({busy:.1f} of {wall:.1f} ms)"
+
+
+def lm_matvec(opt, batch, gen, label):
+    """The step's GGN matvec at the optimizer's params: build ms and the
+    median matvec ms of 20 (CUDA events)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, mvp = optimizer._build_matvec_and_grad(
+        opt.fns, opt.config, opt.ravel, opt.params, batch
+    )
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    v = torch.randn(opt.ravel.dim, generator=gen, device="cuda")
+    times = cuda_ms(lambda: mvp(v), 20)
+    print(f"{label} GGN matvec: median {statistics.median(times):.3f} ms "
+          f"over 20 (CUDA events); per-batch build {build_ms:.1f} ms")
+    print(f"{label} GGN matvec, 5 under torch.profiler: device busy "
+          f"{device_busy(lambda: mvp(v), 5)}")
+
+
+def cosine(a, b):
+    return float(a @ b / (torch.linalg.vector_norm(a)
+                          * torch.linalg.vector_norm(b)))
+
+
+def phase_decoder_lm():
+    """3 HF steps of the full-width decoder LM, a bf16-curvature step from
+    the same start, and the long-sequence chunked matvec."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_decoder_lm(gen, max_len=128, **LM)
+    count = sum(t.numel() for t in tree_flatten(params)[0])
+    if count != DENSE_LM_N:
+        raise AssertionError(f"decoder LM has {count} parameters")
+    tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
+    batch = (tokens, tokens)
+    apply = functools.partial(models.decoder_lm_apply, n_heads=LM["n_heads"])
+    opt = lm_opt(params, apply, damping=1.0, cg_max_iter=50)
+    if opt.ravel.dim != DENSE_LM_N:
+        raise AssertionError(f"flat dimension {opt.ravel.dim}")
+    print(f"decoder LM path: {count} parameters (tied head), flat dim "
+          f"{opt.ravel.dim}, batch 32 x T 128 of the affine rule on vocab "
+          f"1024, next-token loss, GGN, cg_max_iter=50, f32")
+    start = opt.params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = run_steps(opt, batch, 3, "the decoder LM path")
+    print(f"decoder LM steps: peak memory "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
+    lm_matvec(opt, batch, gen, "decoder LM")
+
+    # bf16 curvature from the same start: matvec against f32, then a step
+    v = torch.randn(opt.ravel.dim, generator=gen, device="cuda")
+    mvps = []
+    for cdtype in (None, "bfloat16"):
+        config = pkg.HFConfig(damping=1.0, cg_max_iter=50,
+                              curvature_dtype=cdtype)
+        mvps.append(optimizer._build_matvec_and_grad(
+            opt.fns, config, opt.ravel, start, batch)[2](v))
+    cos = cosine(mvps[0], mvps[1])
+    if not cos > 0.99 or mvps[1].dtype != torch.float32:
+        raise AssertionError(f"bf16 matvec: cosine {cos}, {mvps[1].dtype}")
+    print(f"bf16-curvature GGN matvec at the start vs f32: cosine {cos:.6f}")
+    del mvps
+    bf16 = lm_opt(start, apply, damping=1.0, cg_max_iter=50,
+                  curvature_dtype="bfloat16")
+    launches += run_steps(bf16, batch, 1, "the bf16-curvature step")
+    lm_matvec(bf16, batch, gen, "bf16-curvature")
+    del opt, bf16, start, params
+    phase_long_sequence(gen)
+    return launches
+
+
+def phase_long_sequence(gen):
+    """T 1024, batch 4: the matvec with ``attn_chunk=256`` against full
+    attention, with the peak memory of each, in steps: chunking under
+    ``linearize``; the one-shot matvec that ``HFConfig(remat=True)`` builds,
+    without its checkpoints; and with them (blocks and whole model)."""
+    params = models.init_decoder_lm(gen, max_len=1024, **LM)
+    tokens = affine_tokens(gen, 4, 1024, LM["vocab"], "cuda")
+    ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
+    v = torch.randn(ravel.dim, generator=gen, device="cuda")
+
+    def fns(**kwargs):
+        return pkg.HFModelFns(
+            model_fn=functools.partial(models.decoder_lm_apply,
+                                       n_heads=LM["n_heads"], **kwargs),
+            loss_outer=models.next_token_loss,
+        )
+
+    def build(fns, config):
+        return optimizer._build_matvec_and_grad(
+            fns, config, ravel, params, (tokens, tokens))[2]
+
+    def one_shot(fns):
+        """``HFConfig(remat=True)``'s gradient and matvec, unwrapped."""
+        def model_at(p):
+            return fns.model_fn(p, tokens)
+
+        def outer(out):
+            return fns.loss_outer(out, tokens)
+
+        value_and_grad(lambda p: outer(model_at(p)), params)
+        return lambda u: ravel.ravel(
+            ggnvp(model_at, outer, params, ravel.unravel(u)))
+
+    out = {}
+    for label, make in (
+        ("full attention, linearized",
+         lambda: build(fns(), pkg.HFConfig())),
+        ("attn_chunk=256, linearized",
+         lambda: build(fns(attn_chunk=256), pkg.HFConfig())),
+        ("attn_chunk=256, one-shot",
+         lambda: one_shot(fns(attn_chunk=256))),
+        ("attn_chunk=256, one-shot, remat",
+         lambda: build(fns(attn_chunk=256, remat=True),
+                       pkg.HFConfig(remat=True))),
+    ):
+        gc.collect()  # the previous linearized graph sits in a cycle
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mvp = make()
+        out[label] = mvp(v)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        times = cuda_ms(lambda: mvp(v), 5)
+        print(f"T 1024 b4, {label}: GGN matvec median "
+              f"{statistics.median(times):.2f} ms over 5 (CUDA events); "
+              f"peak memory of gradient + build + matvec {gib(peak):.2f} GiB "
+              f"above {gib(base):.2f} GiB")
+        del mvp
+    full, *chunked = out.items()
+    for label, mv in chunked:
+        err = float(torch.linalg.vector_norm(mv - full[1])
+                    / torch.linalg.vector_norm(full[1]))
+        if not err <= 1e-5:
+            raise AssertionError(f"{label} matvec: relative error {err}")
+        print(f"T 1024: {label} matvec vs full attention, relative error "
+              f"{err:.2e} (norm-wise)")
+
+
+def phase_moe_lm():
+    """2 HF steps of the full-width MoE decoder LM."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_moe_decoder_lm(gen, n_experts=8, max_len=128, **LM)
+    count = sum(t.numel() for t in tree_flatten(params)[0])
+    if count != MOE_N:
+        raise AssertionError(f"MoE LM has {count} parameters")
+    tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
+    batch = (tokens, tokens)
+    apply = functools.partial(models.moe_decoder_lm_apply,
+                              n_heads=LM["n_heads"], capacity_factor=1.25,
+                              router_groups=1, top_k=2)
+    opt = lm_opt(params, apply, damping=1.0, cg_max_iter=50)
+    if opt.ravel.dim != MOE_N:
+        raise AssertionError(f"flat dimension {opt.ravel.dim}")
+    print(f"MoE LM path: {count} parameters, 8 experts, top-2, capacity "
+          f"1.25, 1 router group, batch 32 x T 128, GGN, cg_max_iter=50, f32")
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = run_steps(opt, batch, 2, "the MoE LM path")
+    print(f"MoE LM steps: peak memory "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
+    lm_matvec(opt, batch, gen, "MoE LM")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on a GPU.")
@@ -483,6 +786,9 @@ def main():
     launches = phase_main()
     phase_allcnnc_narrow()
     launches += phase_allcnnc()
+    phase_lm_narrow()
+    launches += phase_decoder_lm()
+    launches += phase_moe_lm()
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",
@@ -493,6 +799,9 @@ def main():
         "max_abs_err": record["max_abs_err"],
         "ms": record["ms"],
         "plain_ms": record["plain_ms"],
+        "bound_ms": record["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

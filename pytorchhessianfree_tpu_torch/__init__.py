@@ -49,7 +49,17 @@ from .optimizer import (
     make_hf_step,
     make_hf_train_loop,
 )
+from .models import (
+    decoder_lm_apply,
+    init_decoder_lm,
+    init_moe_decoder_lm,
+    init_transformer,
+    moe_decoder_lm_apply,
+    next_token_loss,
+    transformer_apply,
+)
 from .utils.flatten import TrainableRavel
+from .utils.remat import checkpoint
 
 __version__ = "0.1.0"
 
@@ -94,5 +104,13 @@ __all__ = [
     "make_hf_acc_step",
     "make_hf_step",
     "make_hf_train_loop",
+    "decoder_lm_apply",
+    "init_decoder_lm",
+    "init_moe_decoder_lm",
+    "init_transformer",
+    "moe_decoder_lm_apply",
+    "next_token_loss",
+    "transformer_apply",
     "TrainableRavel",
+    "checkpoint",
 ]

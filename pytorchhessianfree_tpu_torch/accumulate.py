@@ -32,7 +32,7 @@ import torch
 from torch.func import grad, jvp
 
 from .config import HFConfig
-from .ops.curvature import ggnvp, ggnvp_fn, hvp
+from .ops.curvature import ggnvp, ggnvp_fn, hvp, value_and_grad
 from .utils.flatten import (
     TrainableRavel,
     tree_flatten,
@@ -135,7 +135,9 @@ def acc_grad(
     after the chunks."""
 
     def chunk_grad(x, y):
-        return ravel.ravel(grad(lambda p: fns.data_loss(p, (x, y)))(params))
+        return ravel.ravel(
+            value_and_grad(lambda p: fns.data_loss(p, (x, y)), params)[1]
+        )
 
     out = acc_reduce(data, chunk_grad, reduction)
     if fns.loss_reg is not None:

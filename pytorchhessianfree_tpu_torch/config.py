@@ -17,9 +17,13 @@ Three groups of fields differ in what they do here:
   ``"highest"`` mean full f32 on both; ``"high"`` and ``"default"`` mean
   TF32 on both.  cuDNN convolutions default to TF32 on Hopper, so an unset
   knob has to switch it off explicitly.
-- **Knobs not ported yet** (``curvature_dtype``, ``remat``, ``rich_stats``,
-  the ``"batched"`` select modes and ``CGConfig.store_dtype``) raise :class:`NotImplementedError` when set away
-  from their default, naming the ROADMAP.md item that ports them.
+- **Knobs not ported yet** (``rich_stats``, the ``"batched"`` select modes
+  and ``CGConfig.store_dtype``) raise :class:`NotImplementedError` when set
+  away from their default, naming the ROADMAP.md item that ports them.
+
+``curvature_dtype`` (a reduced-precision matvec, for example
+``"bfloat16"``) and ``remat`` (rematerialized model forward) act as in the
+JAX package; see ``optimizer._build_matvec_and_grad``.
 """
 
 from __future__ import annotations
@@ -177,9 +181,5 @@ class HFConfig:
             )
         if self.backtracking_mode != "sequential":
             raise not_ported("HFConfig.backtracking_mode='batched'", "item 15")
-        if self.curvature_dtype is not None:
-            raise not_ported("HFConfig.curvature_dtype", "item 15")
-        if self.remat:
-            raise not_ported("HFConfig.remat", "item 15")
         if self.rich_stats:
             raise not_ported("HFConfig.rich_stats", "item 15")

@@ -3,12 +3,14 @@
 The port keeps the JAX package's parameter layout (see
 :mod:`.models.resnet`), so carrying weights across is a structural copy.
 Both functions take numpy arrays (``np.asarray`` of the JAX values), which
-keeps this package free of any JAX import.
+keeps this package free of any JAX import.  They put the tensors on the
+card unless the caller passes another ``device`` (``device="cpu"``, as the
+parity tests do); without a card the default raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -19,7 +21,7 @@ from .utils.flatten import tree_map
 
 def params_from_jax(
     tree_of_numpy: Any,
-    device: Optional[torch.device] = None,
+    device: Union[str, torch.device] = "cuda",
     dtype: Optional[torch.dtype] = None,
 ) -> Any:
     """A JAX parameter tree given as numpy arrays -> the port's tree (same
@@ -38,7 +40,7 @@ def state_from_jax(
     x0: Any,
     damping: Any,
     step_count: Any,
-    device: Optional[torch.device] = None,
+    device: Union[str, torch.device] = "cuda",
     dtype: Optional[torch.dtype] = None,
 ) -> HFState:
     """The port's :class:`HFState` from the fields of a JAX ``HFState``."""

@@ -1,5 +1,5 @@
-"""Workload models in PyTorch: MLPs, ResNet-18, All-CNN-C and analytic
-targets."""
+"""Workload models in PyTorch: MLPs, ResNet-18, All-CNN-C, analytic
+targets, the transformer family and the MoE decoder LM."""
 
 from .allcnnc import allcnnc_apply, init_allcnnc, l2_regularizer
 from .mlp import (
@@ -14,12 +14,20 @@ from .mlp import (
     mse_loss_sum,
     mse_per_sample,
 )
+from .moe import init_moe_decoder_lm, moe_decoder_lm_apply, moe_param_specs
 from .resnet import init_resnet18, resnet18_apply
 from .targetfunc import (
     quadratic_problem,
     rosenbrock,
     rosenbrock_problem,
     target_func_fns,
+)
+from .transformer import (
+    decoder_lm_apply,
+    init_decoder_lm,
+    init_transformer,
+    next_token_loss,
+    transformer_apply,
 )
 
 __all__ = [
@@ -42,4 +50,12 @@ __all__ = [
     "rosenbrock",
     "rosenbrock_problem",
     "target_func_fns",
+    "decoder_lm_apply",
+    "init_decoder_lm",
+    "init_transformer",
+    "next_token_loss",
+    "transformer_apply",
+    "init_moe_decoder_lm",
+    "moe_decoder_lm_apply",
+    "moe_param_specs",
 ]

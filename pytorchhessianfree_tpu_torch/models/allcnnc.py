@@ -42,10 +42,12 @@ def init_allcnnc(
 ) -> Any:
     """All-CNN-C parameters: three blocks of three convs (96, 96, 96/2 |
     192, 192, 192/2 | 192 valid, 1x1 192, 1x1 ``num_classes``).  Kernels
-    are He-normal, drawn on the generator's device and moved to ``device``;
-    biases are zero.  ``width_scale`` shrinks the channel widths (same
-    topology); 1.0 is the paper's model, 1,387,108 parameters at 100
-    classes."""
+    are He-normal, drawn on the generator's device and moved to ``device``
+    (the generator's device if ``None``); biases are zero.  ``width_scale``
+    shrinks the channel widths (same topology); 1.0 is the paper's model,
+    1,387,108 parameters at 100 classes."""
+    if device is None:
+        device = generator.device
     c96 = max(1, round(96 * width_scale))
     c192 = max(1, round(192 * width_scale))
     widths = [

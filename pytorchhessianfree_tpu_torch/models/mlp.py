@@ -35,7 +35,10 @@ def init_mlp(
     dtype: torch.dtype = torch.float32,
 ) -> Any:
     """MLP params ``{"layers": [dense, ...]}``: tanh between layers, linear
-    head, weights uniform in ``±1/sqrt(fan_in)``."""
+    head, weights uniform in ``±1/sqrt(fan_in)``, drawn on the generator's
+    device and moved to ``device`` (the generator's device if ``None``)."""
+    if device is None:
+        device = generator.device
     layers = [
         _dense_init(generator, sizes[i], sizes[i + 1], device, dtype)
         for i in range(len(sizes) - 1)

@@ -105,9 +105,12 @@ def init_resnet18(
     """Parameters for ResNet-18: 7x7/2 stem, 3x3/2 max pool, four stages of
     two basic blocks, global average pool, linear head.  Conv kernels are
     He-normal, the head normal over ``sqrt(fan_in)``.  Values are drawn on
-    the generator's device and moved to ``device``.
+    the generator's device and moved to ``device`` (the generator's device
+    if ``None``).
 
     ``width_scale`` shrinks every channel width (same topology)."""
+    if device is None:
+        device = generator.device
 
     def normal(shape, std):
         t = torch.randn(shape, generator=generator, device=generator.device,

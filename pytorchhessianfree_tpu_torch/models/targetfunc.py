@@ -9,7 +9,7 @@ the optimizer.  Here a "model" is ``loss_fn(params, batch)`` with
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Tuple, Union
 
 import torch
 
@@ -38,9 +38,10 @@ def rosenbrock(
 def rosenbrock_problem(
     init: Tuple[float, float] = (-0.5, 1.5),
     dtype: torch.dtype = torch.float32,
-    device: Optional[torch.device] = None,
+    device: Union[str, torch.device] = "cuda",
 ):
-    """Initial params and model fns for the Rosenbrock workload."""
+    """Initial params (on the card unless ``device`` says otherwise) and
+    model fns for the Rosenbrock workload."""
     params = {"x": torch.tensor(init, dtype=dtype, device=device)}
     return params, target_func_fns(rosenbrock)
 

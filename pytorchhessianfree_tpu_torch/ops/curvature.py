@@ -18,6 +18,13 @@ an accumulated matvec, the one-shot forms ``ggnvp`` and ``hvp`` build and
 apply the product in one call with ``torch.func.jvp`` and
 ``torch.func.vjp`` and trace nothing.
 
+Gradients here come from :func:`value_and_grad`, a ``torch.func.vjp``
+whose closure runs after its transform level has closed, not from
+``torch.func.grad``: ``grad`` differentiates inside its level with
+``create_graph=True``, so its backward records a graph that keeps
+everything a checkpointed function (:mod:`~.utils.remat`) recomputes alive
+until the gradient is complete, and rematerialization saves nothing.
+
 Both work on parameter trees; the optimizer converts to and from the flat
 CG vector space with :class:`~.utils.flatten.TrainableRavel`.
 """
@@ -28,6 +35,15 @@ from typing import Any, Callable, Tuple
 
 import torch
 from torch.func import grad, grad_and_value, jvp, linearize, vjp
+
+
+def value_and_grad(
+    fn: Callable[[Any], torch.Tensor], params: Any
+) -> Tuple[torch.Tensor, Any]:
+    """``(fn(params), gradient)`` of a scalar ``fn`` on trees, from one
+    ``torch.func.vjp`` (module docstring)."""
+    value, vjp_fn = vjp(fn, params)
+    return value, vjp_fn(torch.ones_like(value))[0]
 
 
 def hvp_fn(
@@ -45,29 +61,42 @@ def hvp_fn(
     return loss, grad_tree, hvp
 
 
-def ggnvp_fn(
+def ggn_matvec_fn(
     model_fn: Callable[[Any], Any],
     loss_outer: Callable[[Any], torch.Tensor],
     params: Any,
-) -> Tuple[torch.Tensor, Any, Any, Callable[[Any], Any]]:
-    """GGN-vector product ``Gv = J^T H_L (J v)``.
+) -> Tuple[Any, Callable[[Any], Any], Callable[[Any], Any]]:
+    """The GGN-vector product ``Gv = J^T H_L (J v)`` alone, with no loss
+    and no gradient.
 
-    Returns ``(loss, outputs, grad, ggnvp)``: ``grad`` is the gradient of
-    ``loss_outer(model_fn(params))`` and ``ggnvp(v)`` maps a tangent tree to
-    ``G @ v``.
+    Returns ``(outputs, vjp_of_model, ggnvp)``: the model's outputs, its
+    vjp closure and ``ggnvp(v)``, which maps a tangent tree to ``G @ v``.
     """
     outputs, vjp_of_model = vjp(model_fn, params)
     _, jvp_of_model = linearize(model_fn, params)
     loss_grad_fn = grad(loss_outer)
-
-    loss = loss_outer(outputs)
-    grad_tree = vjp_of_model(loss_grad_fn(outputs))[0]
 
     def mvp(v: Any) -> Any:
         Jv = jvp_of_model(v)
         HJv = jvp(loss_grad_fn, (outputs,), (Jv,))[1]
         return vjp_of_model(HJv)[0]
 
+    return outputs, vjp_of_model, mvp
+
+
+def ggnvp_fn(
+    model_fn: Callable[[Any], Any],
+    loss_outer: Callable[[Any], torch.Tensor],
+    params: Any,
+) -> Tuple[torch.Tensor, Any, Any, Callable[[Any], Any]]:
+    """GGN-vector product ``Gv = J^T H_L (J v)``, with the loss and the
+    gradient of ``loss_outer(model_fn(params))`` from the same vjp.
+
+    Returns ``(loss, outputs, grad, ggnvp)``.
+    """
+    outputs, vjp_of_model, mvp = ggn_matvec_fn(model_fn, loss_outer, params)
+    loss = loss_outer(outputs)
+    grad_tree = vjp_of_model(grad(loss_outer)(outputs))[0]
     return loss, outputs, grad_tree, mvp
 
 
@@ -86,5 +115,6 @@ def ggnvp(
 
 
 def hvp(loss_fn: Callable[[Any], torch.Tensor], params: Any, v: Any) -> Any:
-    """One Hessian-vector product on trees, forward over reverse."""
-    return jvp(grad(loss_fn), (params,), (v,))[1]
+    """One Hessian-vector product on trees, forward over reverse: the jvp
+    of :func:`value_and_grad`'s gradient."""
+    return jvp(lambda p: value_and_grad(loss_fn, p)[1], (params,), (v,))[1]

@@ -24,12 +24,18 @@ import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.func import grad_and_value
 
 from . import accumulate as acc
 from .config import HFConfig, not_ported, precision_ctx
 from .ops.cg import CG_REASON_STRINGS, cg
-from .ops.curvature import ggnvp_fn, hvp_fn
+from .ops.curvature import (
+    ggn_matvec_fn,
+    ggnvp,
+    ggnvp_fn,
+    hvp,
+    hvp_fn,
+    value_and_grad,
+)
 from .ops.precond import (
     EMADiag,
     diag_EF,
@@ -38,6 +44,7 @@ from .ops.precond import (
 )
 from .ops.select import cg_efficient_backtracking, simple_linesearch
 from .utils.flatten import TrainableRavel, tree_flatten, tree_map
+from .utils.remat import checkpoint
 
 
 class HFState(NamedTuple):
@@ -235,12 +242,69 @@ def _step_core(
     return new_params, new_state, stats
 
 
+def _maybe_remat(fns: HFModelFns, config: HFConfig) -> HFModelFns:
+    """Apply ``config.remat``: checkpoint the model forward (resp.
+    ``loss_fn``) so that derivatives recompute its activations instead of
+    storing them."""
+    if not config.remat:
+        return fns
+    if fns.loss_fn is not None:
+        fns = fns._replace(loss_fn=checkpoint(fns.loss_fn))
+    if fns.model_fn is not None:
+        fns = fns._replace(model_fn=checkpoint(fns.model_fn))
+    return fns
+
+
+def _cast_floating(tree, dtype):
+    """Cast the floating-point tensor leaves of ``tree`` to ``dtype``;
+    integer leaves (tokens, labels) and other leaves pass through."""
+    return tree_map(
+        lambda a: a.to(dtype)
+        if isinstance(a, torch.Tensor) and a.is_floating_point()
+        else a,
+        tree,
+    )
+
+
+def _curvature_dtype(config: HFConfig) -> Optional[torch.dtype]:
+    if config.curvature_dtype is None:
+        return None
+    dtype = getattr(torch, config.curvature_dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(
+            f"Unknown curvature_dtype {config.curvature_dtype!r}"
+        )
+    return dtype
+
+
 def _build_matvec_and_grad(
     fns: HFModelFns, config: HFConfig, ravel: TrainableRavel, params, batch
 ):
     """Loss, flat gradient and flat (undamped) curvature matvec for one
     batch.  The GGN path linearizes the model once per batch; the Hessian
-    path linearizes ``(grad, value)`` of the loss once per batch."""
+    path linearizes ``(grad, value)`` of the loss once per batch.
+
+    ``config.curvature_dtype`` (e.g. ``"bfloat16"``): the matvec runs
+    through a cast of the parameters and of the floating leaves of the
+    batch (integer tokens stay integers); the model outputs (resp. the
+    Hessian path's loss) are cast back to the parameter dtype, each tangent
+    is cast to the curvature dtype and each product is raveled in the
+    parameter dtype.  The loss and the gradient stay full precision (one
+    ``vjp``; the curvature-dtype matvec is built without a loss or gradient
+    of its own), and no CG vector is ever in the curvature dtype.
+
+    ``config.remat``: the model forward (resp. ``loss_fn``) is wrapped in
+    :func:`~.utils.remat.checkpoint`, and every matvec is the one-shot
+    ``ggnvp`` / ``hvp``, which recomputes the forward instead of replaying a
+    linearization that would store every activation.  The numbers are the
+    same."""
+    fns = _maybe_remat(fns, config)
+    cdtype = _curvature_dtype(config)
+    derived = cdtype is not None or config.remat
+
+    def cast(tree):
+        return tree if cdtype is None else _cast_floating(tree, cdtype)
+
     if config.curvature_opt == "ggn":
         if fns.model_fn is None or fns.loss_outer is None:
             raise ValueError(
@@ -249,25 +313,62 @@ def _build_matvec_and_grad(
                 "reference optimizer.py:152-154)."
             )
         inputs, targets = batch
-        loss, _outputs, grad_tree, mvp_tree = ggnvp_fn(
-            lambda p: fns.model_fn(p, inputs),
-            lambda out: fns.loss_outer(out, targets),
-            params,
-        )
+
+        def outer(out):
+            return fns.loss_outer(out, targets)
+
+        if not derived:
+            loss, _outputs, grad_tree, mvp_tree = ggnvp_fn(
+                lambda p: fns.model_fn(p, inputs), outer, params
+            )
+        else:
+            loss, grad_tree = value_and_grad(
+                lambda p: outer(fns.model_fn(p, inputs)), params
+            )
+            lp_inputs, lp_params = cast(inputs), cast(params)
+
+            def lp_model_at(p):
+                # outputs back in the parameter dtype: the loss Hessian
+                # stays full precision
+                out = fns.model_fn(p, lp_inputs)
+                return out if cdtype is None else _cast_floating(
+                    out, ravel.dtype
+                )
+
+            if config.remat:
+                def mvp_tree(v):
+                    return ggnvp(lp_model_at, outer, lp_params, v)
+            else:
+                mvp_tree = ggn_matvec_fn(lp_model_at, outer, lp_params)[2]
         grad_vec = ravel.ravel(grad_tree)
         if fns.loss_reg is not None:
             # the regularizer enters loss and gradient, not the GGN
-            reg_grad, reg_val = grad_and_value(fns.loss_reg)(params)
+            reg_val, reg_grad = value_and_grad(fns.loss_reg, params)
             loss = loss + reg_val
             grad_vec = grad_vec + ravel.ravel(reg_grad)
     else:
-        loss, grad_tree, mvp_tree = hvp_fn(
-            lambda p: fns.full_loss(p, batch), params
-        )
+        if not derived:
+            loss, grad_tree, mvp_tree = hvp_fn(
+                lambda p: fns.full_loss(p, batch), params
+            )
+        else:
+            loss, grad_tree = value_and_grad(
+                lambda p: fns.full_loss(p, batch), params
+            )
+            lp_batch, lp_params = cast(batch), cast(params)
+
+            def lp_loss_of(p):
+                return fns.full_loss(p, lp_batch).to(ravel.dtype)
+
+            if config.remat:
+                def mvp_tree(v):
+                    return hvp(lp_loss_of, lp_params, v)
+            else:
+                mvp_tree = hvp_fn(lp_loss_of, lp_params)[2]
         grad_vec = ravel.ravel(grad_tree)
 
     def mvp_vec(v):
-        return ravel.ravel(mvp_tree(ravel.unravel(v)))
+        return ravel.ravel(mvp_tree(cast(ravel.unravel(v))))
 
     return loss, grad_vec, mvp_vec
 
@@ -467,7 +568,10 @@ def hf_acc_step(
     iteration forms the curvature products chunk by chunk, as the
     reference does; ``mvp_amortize=True`` (GGN, stacked data) linearizes
     once per step instead.  ``config.matmul_precision`` applies to the
-    whole step.
+    whole step.  ``config.remat`` checkpoints the model forward (resp.
+    ``loss_fn``) for every evaluation of the step; ``config.curvature_dtype``
+    is ignored here, as in the JAX package: the accumulated matvec runs in
+    the parameter dtype.
     """
     if config.precond == "diag_ef":
         raise ValueError(
@@ -480,6 +584,7 @@ def hf_acc_step(
     if mvp_data is None:
         mvp_data = loss_data
 
+    fns = _maybe_remat(fns, config)
     with precision_ctx(config):
         init_loss = acc.acc_loss(fns, params, loss_data, reduction)
         grad_vec = acc.acc_grad(fns, params, grad_data, reduction, ravel)

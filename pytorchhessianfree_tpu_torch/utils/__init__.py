@@ -1,5 +1,7 @@
-"""Utilities: flat-vector <-> parameter-tree conversion."""
+"""Utilities: flat-vector <-> parameter-tree conversion and
+rematerialization."""
 
 from .flatten import TrainableRavel
+from .remat import checkpoint
 
-__all__ = ["TrainableRavel"]
+__all__ = ["TrainableRavel", "checkpoint"]

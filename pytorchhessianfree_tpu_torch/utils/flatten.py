@@ -6,7 +6,10 @@ in the order ``jax.tree_util.tree_flatten`` gives them (dict keys sorted,
 lists and tuples in order), so a flat vector of this package equals the JAX
 package's flat vector of the same tree index for index.
 ``torch.utils._pytree`` keeps dict insertion order instead, which would
-permute the vector; it is not used here.
+permute the vector; it is not used here.  A rebuilt dict keeps the key
+order of the dict it was flattened from, because ``torch.func.jvp`` and
+``linearize`` require a tangent tree to have its primal tree's structure,
+key order included.
 
 Slices of a flat vector are views.  The XLA-specific optimization barriers
 of the JAX version have no counterpart in eager PyTorch.
@@ -29,7 +32,7 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
             sub, d = tree_flatten(tree[k])
             leaves += sub
             defs.append(d)
-        return leaves, ("dict", keys, defs)
+        return leaves, ("dict", (keys, list(tree)), defs)
     if isinstance(tree, (list, tuple)):
         leaves, defs = [], []
         for v in tree:
@@ -55,7 +58,9 @@ def _build(treedef, it):
     kind, keys, defs = treedef
     children = [_build(d, it) for d in defs]
     if kind == "dict":
-        return dict(zip(keys, children))
+        sorted_keys, order = keys
+        by_key = dict(zip(sorted_keys, children))
+        return {k: by_key[k] for k in order}
     return tuple(children) if kind == "tuple" else children
 
 

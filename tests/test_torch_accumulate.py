@@ -51,7 +51,8 @@ def _problem(seed, n=16):
     rng = np.random.default_rng(seed)
     x, y = rng.standard_normal((n, 7)), rng.standard_normal((n, 3))
     return jparams, params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                           jparams)), x, y
+                                                           jparams),
+                                    device="cpu"), x, y
 
 
 def _per_sample(reduction):

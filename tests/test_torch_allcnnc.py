@@ -34,7 +34,8 @@ FULL_DIM = 1_387_520  # padded to a multiple of 1024
 
 
 def _carry(jparams):
-    return params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,7 +205,7 @@ def test_dropout_mlp_trains_with_a_seed_per_step():
 
 def test_rosenbrock_steps_match_jax_and_converge():
     jp, jfns = jm.rosenbrock_problem(dtype=jnp.float64)
-    tp, tfns = tm.rosenbrock_problem(dtype=torch.float64)
+    tp, tfns = tm.rosenbrock_problem(dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(float(tm.rosenbrock(tp["x"])),
                                float(jm.rosenbrock(jp["x"])), rtol=1e-15)
     kw = dict(curvature_opt="hessian", damping=0.5, cg_max_iter=50)

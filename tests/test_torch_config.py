@@ -68,8 +68,6 @@ def test_zero_damping_disables_adaptation_like_jax():
 @pytest.mark.parametrize(
     "name,kwargs",
     [
-        ("HFConfig", dict(curvature_dtype="bfloat16")),
-        ("HFConfig", dict(remat=True)),
         ("HFConfig", dict(rich_stats=True)),
         ("HFConfig", dict(backtracking_mode="batched")),
         ("CGConfig", dict(store_dtype="bfloat16")),
@@ -80,6 +78,15 @@ def test_unported_knobs_raise_and_name_roadmap(name, kwargs):
     getattr(jcfg, name)(**kwargs)  # valid in the JAX package
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         getattr(tcfg, name)(**kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs", [dict(curvature_dtype="bfloat16"), dict(remat=True)]
+)
+def test_curvature_dtype_and_remat_are_ported(kwargs):
+    for key, value in kwargs.items():
+        assert getattr(tcfg.HFConfig(**kwargs), key) == value
+        assert getattr(jcfg.HFConfig(**kwargs), key) == value
 
 
 @pytest.mark.parametrize(

@@ -1,6 +1,7 @@
 """The CUDA kernel on a card: ``fused_cg_update`` against its plain version,
-CG (plain and preconditioned) on the card against CG on the CPU, and the
-empirical-Fisher diagonal on the card against the CPU.
+CG (plain and preconditioned) on the card against CG on the CPU, the
+empirical-Fisher diagonal and the LM matvecs on the card against the CPU,
+and the peak memory that rematerialization saves on the card.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -31,7 +32,10 @@ from pytorchhessianfree_tpu_torch.ops.cg_update import (  # noqa: E402
     fused_cg_update,
     fused_cg_update_reference,
 )
-from pytorchhessianfree_tpu_torch.utils.flatten import tree_map  # noqa: E402
+from pytorchhessianfree_tpu_torch.utils.flatten import (  # noqa: E402
+    tree_flatten,
+    tree_map,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +146,136 @@ def test_diag_EF_on_card_matches_cpu(cuda, use_scan):
     gpu, cpu = out
     assert gpu.device.type == "cuda"
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-10, atol=1e-300)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    from pytorchhessianfree_tpu_torch.convert import params_from_jax
+    from pytorchhessianfree_tpu_torch.models import init_mlp
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    assert {t.device.type for t in tree_flatten(init_mlp(gen))[0]} == {"cuda"}
+    tree = params_from_jax({"w": np.ones((2, 2))})
+    assert tree["w"].device.type == "cuda"
+
+
+def _narrow_lms():
+    from pytorchhessianfree_tpu_torch.models import (
+        decoder_lm_apply,
+        init_decoder_lm,
+        init_moe_decoder_lm,
+        moe_decoder_lm_apply,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    dense = init_decoder_lm(gen, vocab=32, d_model=32, n_layers=2, d_ff=64,
+                            dtype=torch.float64)
+    moe = init_moe_decoder_lm(gen, vocab=32, d_model=32, n_layers=2,
+                              d_ff=64, dtype=torch.float64)
+    tokens = torch.randint(0, 32, (4, 16), generator=gen)
+    return ((dense, decoder_lm_apply), (moe, moe_decoder_lm_apply)), tokens
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["decoder_lm", "moe"])
+@pytest.mark.parametrize(
+    "config",
+    [dict(), dict(remat=True)],
+    ids=["plain", "remat"],
+)
+def test_lm_matvec_on_card_matches_cpu(cuda, which, config):
+    from pytorchhessianfree_tpu_torch import HFConfig, HFModelFns
+    from pytorchhessianfree_tpu_torch.models import next_token_loss
+    from pytorchhessianfree_tpu_torch.optimizer import _build_matvec_and_grad
+
+    models, tokens = _narrow_lms()
+    params, apply = models[which]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        ravel = TrainableRavel(p)
+        fns = HFModelFns(model_fn=lambda q, t: apply(q, t, attn_chunk=8),
+                         loss_outer=next_token_loss)
+        v = torch.randn(ravel.dim, generator=torch.Generator().manual_seed(1),
+                        dtype=torch.float64).to(dev)
+        loss, grad, mvp = _build_matvec_and_grad(
+            fns, HFConfig(**config), ravel, p, (tokens.to(dev),) * 2)
+        out.append([loss.cpu(), grad.cpu(), mvp(v).cpu()])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_bf16_matvec_on_card_approximates_f32(cuda):
+    from pytorchhessianfree_tpu_torch import HFConfig, HFModelFns
+    from pytorchhessianfree_tpu_torch.models import (
+        decoder_lm_apply,
+        init_decoder_lm,
+        next_token_loss,
+    )
+    from pytorchhessianfree_tpu_torch.optimizer import _build_matvec_and_grad
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_decoder_lm(gen, vocab=64, d_model=64, n_layers=2, d_ff=128)
+    tokens = torch.randint(0, 64, (8, 16), generator=gen, device="cuda")
+    fns = HFModelFns(model_fn=decoder_lm_apply, loss_outer=next_token_loss)
+    ravel = TrainableRavel(params)
+    v = torch.randn(ravel.dim, generator=gen, device="cuda")
+    res = [
+        _build_matvec_and_grad(fns, HFConfig(curvature_dtype=c), ravel,
+                               params, (tokens, tokens))
+        for c in (None, "bfloat16")
+    ]
+    torch.testing.assert_close(res[1][1], res[0][1], rtol=1e-6, atol=1e-7)
+    a, b = res[0][2](v), res[1][2](v)
+    assert b.dtype == torch.float32
+    cos = float(a @ b / (torch.linalg.vector_norm(a)
+                         * torch.linalg.vector_norm(b)))
+    assert cos > 0.99
+
+
+@pytest.mark.parametrize("product", ["gradient", "ggnvp", "hvp"])
+def test_remat_cuts_peak_memory_on_card(cuda, product):
+    """16 checkpointed layers hold one input each in place of their
+    activations, in the one-shot products that ``HFConfig(remat=True)``
+    builds."""
+    from pytorchhessianfree_tpu_torch.ops.curvature import (
+        ggnvp,
+        hvp,
+        value_and_grad,
+    )
+    from pytorchhessianfree_tpu_torch.utils.remat import checkpoint
+
+    def layer(w, h):
+        h = torch.tanh(h @ w)
+        h = h * torch.sigmoid(h)
+        return torch.sin(h)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ws = [torch.randn(1024, 1024, generator=gen, device="cuda") / 32
+          for _ in range(16)]
+    vs = [torch.randn(1024, 1024, generator=gen, device="cuda")
+          for _ in range(16)]
+    x = torch.randn(2048, 1024, generator=gen, device="cuda")
+    peaks = []
+    for remat in (False, True):
+        f = checkpoint(layer) if remat else layer
+
+        def model(q):
+            h = x
+            for w in q:
+                h = f(w, h)
+            return h
+
+        def loss(q):
+            return torch.sum(model(q) ** 2)
+
+        run = {
+            "gradient": lambda: value_and_grad(loss, ws),
+            "ggnvp": lambda: ggnvp(model, lambda o: torch.sum(o**2), ws, vs),
+            "hvp": lambda: hvp(loss, ws, vs),
+        }[product]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    assert peaks[1] < 0.5 * peaks[0], peaks

@@ -48,10 +48,10 @@ def test_ravel_equals_jax(masked, pad):
     tree = _np_tree(0)
     mask = _mask(False) if masked else None
     jr = JRavel(_jax(tree), mask, pad_to_multiple=pad)
-    tr = TrainableRavel(params_from_jax(tree), mask, pad_to_multiple=pad)
+    tr = TrainableRavel(params_from_jax(tree, device="cpu"), mask, pad_to_multiple=pad)
     assert (tr.dim, tr.unpadded_dim) == (jr.dim, jr.unpadded_dim)
     np.testing.assert_array_equal(
-        tr.ravel(params_from_jax(tree)).numpy(),
+        tr.ravel(params_from_jax(tree, device="cpu")).numpy(),
         np.asarray(jr.ravel(_jax(tree))),
     )
 
@@ -59,7 +59,7 @@ def test_ravel_equals_jax(masked, pad):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("pad", [None, 64])
 def test_unravel_add_write_round_trip(masked, pad):
-    tree = params_from_jax(_np_tree(1))
+    tree = params_from_jax(_np_tree(1), device="cpu")
     mask = _mask(False) if masked else None
     tr = TrainableRavel(tree, mask, pad_to_multiple=pad)
     jr = JRavel(_jax(_np_tree(1)), mask, pad_to_multiple=pad)
@@ -95,7 +95,7 @@ def test_unravel_add_write_round_trip(masked, pad):
 
 
 def test_unravel_slices_are_views():
-    tree = params_from_jax(_np_tree(3))
+    tree = params_from_jax(_np_tree(3), device="cpu")
     tr = TrainableRavel(tree)
     vec = tr.ravel(tree)
     leaves, _ = tree_flatten(tr.unravel(vec))
@@ -111,7 +111,7 @@ def test_tree_flatten_order_and_round_trip():
 
 
 def test_errors():
-    tree = params_from_jax(_np_tree(4))
+    tree = params_from_jax(_np_tree(4), device="cpu")
     tr = TrainableRavel(tree, pad_to_multiple=16)
     with pytest.raises(ValueError, match="flat vector of length"):
         tr.unravel(torch.zeros(tr.dim + 1, dtype=torch.float64))

@@ -21,6 +21,9 @@ import pytorchhessianfree_tpu_torch.ops.precond
 import pytorchhessianfree_tpu_torch.models.allcnnc
 import pytorchhessianfree_tpu_torch.models.targetfunc
 import pytorchhessianfree_tpu_torch._build
+import pytorchhessianfree_tpu_torch.models.transformer
+import pytorchhessianfree_tpu_torch.models.moe
+import pytorchhessianfree_tpu_torch.utils.remat
 assert "pytorchhessianfree_tpu" not in sys.modules
 print(len(pkg.__all__))
 """

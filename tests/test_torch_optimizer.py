@@ -136,7 +136,7 @@ def test_three_mlp_steps_match_jax(seed):
         thf.HFModelFns(model_fn=_t_mlp, loss_outer=mse_loss),
         jhf.HFConfig(damping=0.1, cg_max_iter=30),
         thf.HFConfig(damping=0.1, cg_max_iter=30),
-        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params),
+        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params, device="cpu"),
         (jnp.asarray(x), jnp.asarray(y)), (torch.tensor(x), torch.tensor(y)),
         steps=3,
     )
@@ -165,7 +165,7 @@ def test_mlp_step_variants_match_jax(kwargs):
         thf.HFModelFns(model_fn=_t_mlp, loss_outer=mse_loss),
         jhf.HFConfig(damping=1.0, cg_max_iter=20, **j_kwargs),
         thf.HFConfig(damping=1.0, cg_max_iter=20, **t_kwargs),
-        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params),
+        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params, device="cpu"),
         (jnp.asarray(x), jnp.asarray(y)), (torch.tensor(x), torch.tensor(y)),
         steps=2,
     )
@@ -191,7 +191,7 @@ def test_mlp_regularized_and_frozen_match_jax():
         thf.HFModelFns(model_fn=_t_mlp, loss_outer=mse_loss, loss_reg=t_reg),
         jhf.HFConfig(damping=0.1, cg_max_iter=20),
         thf.HFConfig(damping=0.1, cg_max_iter=20),
-        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params),
+        jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params, device="cpu"),
         (jnp.asarray(x), jnp.asarray(y)), (torch.tensor(x), torch.tensor(y)),
         steps=2, trainable=trainable,
     )
@@ -214,7 +214,8 @@ def test_two_narrow_resnet_steps_match_jax():
         jhf.HFConfig(damping=1.0, cg_max_iter=10),
         thf.HFConfig(damping=1.0, cg_max_iter=10),
         jparams,
-        params_from_jax(jax.tree_util.tree_map(np.asarray, jparams)),
+        params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu"),
         (jnp.asarray(x), jnp.asarray(y)), (torch.tensor(x), torch.tensor(y)),
         steps=2,
     )
@@ -223,7 +224,7 @@ def test_two_narrow_resnet_steps_match_jax():
 def test_hessian_free_wrapper_history_and_state_dict():
     params, x, y = _mlp_problem(4)
     batch = (torch.tensor(x), torch.tensor(y))
-    opt = thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
+    opt = thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                           loss_outer=mse_loss, damping=0.1, cg_max_iter=20,
                           verbose=True)
     assert opt.ravel.dim == 1024  # 35 parameters padded to 1024
@@ -239,7 +240,7 @@ def test_hessian_free_wrapper_history_and_state_dict():
 
     sd = opt.state_dict()
     assert sd["step_count"] == 3
-    fresh = thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
+    fresh = thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                             loss_outer=mse_loss, damping=0.1, cg_max_iter=20)
     fresh.load_state_dict(sd)
     for a, b in zip(fresh.state, opt.state):
@@ -249,21 +250,21 @@ def test_hessian_free_wrapper_history_and_state_dict():
     assert len(opt.history["init_losses"]) == 3  # snapshot is a copy
 
     # a JAX state carries over too
-    st = state_from_jax(np.asarray(opt.state.x0), 0.25, 7)
+    st = state_from_jax(np.asarray(opt.state.x0), 0.25, 7, device="cpu")
     assert float(st.damping) == 0.25 and int(st.step_count) == 7
     assert torch.equal(st.x0, opt.state.x0)
 
 
 def test_wrapper_refuses_what_is_not_ported():
     params, x, y = _mlp_problem(5)
-    opt = thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
+    opt = thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                           loss_outer=mse_loss)
     batch = (torch.tensor(x), torch.tensor(y))
     for call in (
         lambda: opt.get_nystrom_sketch(batch),
         lambda: opt.estimate_spectrum(batch),
         lambda: opt.step(batch, precond_lowrank=object()),
-        lambda: thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
+        lambda: thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                                 loss_outer=mse_loss, mesh=object()),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -271,9 +272,9 @@ def test_wrapper_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="either M or precond_diag"):
         opt.step(batch, M=lambda v: v, precond_diag=torch.ones(opt.ravel.dim))
     with pytest.raises(ValueError, match="model_fn"):
-        thf.HessianFree(params_from_jax(params))
+        thf.HessianFree(params_from_jax(params, device="cpu"))
     with pytest.raises(ValueError, match="either config"):
-        thf.HessianFree(params_from_jax(params), model_fn=_t_mlp,
+        thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                         loss_outer=mse_loss, config=thf.HFConfig(), lr=0.5)
 
 

@@ -86,7 +86,8 @@ def _problem(name):
         ]
 
     j_out = [np.asarray(d) for d in j_diags(jparams, x, y)]
-    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
     tr = thf.TrainableRavel(tparams, trainable, pad_to_multiple=256)
     t_fns = (t_apply, t_loss, t_reg)
     return tparams, tr, torch.tensor(x), torch.tensor(y), t_fns, j_out
@@ -150,7 +151,8 @@ def _wrappers(name, seed, **cfg):
     (j_init, j_apply, t_apply, (j_loss, t_loss), (j_reg, t_reg), _, _,
      _) = _models()[name]
     jparams = jax.jit(j_init)(jax.random.PRNGKey(seed))
-    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
     reg = name == "allcnnc"
     j_opt = jhf.HessianFree(jparams, model_fn=j_apply, loss_outer=j_loss,
                             loss_reg=j_reg if reg else None, **cfg)

@@ -53,7 +53,7 @@ def problem():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((4, 28, 28, 1))
     y = rng.integers(0, 10, 4)
-    return jparams, params_from_jax(np_params), x, y
+    return jparams, params_from_jax(np_params, device="cpu"), x, y
 
 
 def test_tree_and_flat_vector_match_jax(problem):

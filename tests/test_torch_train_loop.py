@@ -40,7 +40,8 @@ def _problem(seed, steps=4):
 
 def _both(seed):
     jparams, xs, ys = _problem(seed)
-    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                              device="cpu")
     j = (jparams, jhf.HFModelFns(jm.mlp_apply, jm.mse_loss),
          jhf.HFConfig(**CFG), jhf.TrainableRavel(jparams))
     t = (tparams, thf.HFModelFns(tm.mlp_apply, tm.mse_loss),
