@@ -41,7 +41,23 @@ prints no ``ok`` line:
     (linearized; one-shot; one-shot and rematerialized) are held against
     full attention, with the peak memory of each;
 11. the full-width MoE decoder LM (8 experts, top-2, capacity 1.25, one
-    router group; 107,717,632 parameters): 2 steps, matvec and peak memory.
+    router group; 107,717,632 parameters): 2 steps, matvec and peak memory;
+12. the rest of the optimizer on the main path (ResNet-18/MNIST b32 as in
+    phase 6, ``cudnn.deterministic`` on): a) a rank-32 Nystrom sketch of the
+    GGN (eigenvalues >= 0 and descending, orthonormal columns, the sketch
+    below the operator along its top direction; build time and peak
+    memory); e) the Ritz values of a 32-step Lanczos run and a 4-probe SLQ
+    whose trace must equal ``dim * mean_p(v_p^T A v_p)``; b) the next
+    step's damped system solved by CG plain, with the iterates stored in
+    bf16 (the same iteration bit for bit, a bf16 buffer) and with the
+    Nystrom preconditioner; c) 2 Nystrom-preconditioned steps with
+    ``rich_stats`` (a finite m-history, ``format_rich_stats``); d) a
+    sequential and a batched selection step from one saved state (the same
+    CG iterations, shared losses within rtol 1e-4, the same selection
+    unless its margin is below that); f) a bf16-stored and an f32-stored
+    step from that state (the same CG iterations, reason and m-history bit
+    for bit; peak memory of each); g) ``save`` / ``load`` into a fresh
+    optimizer with both backends, one step each, bitwise equal.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
 trace of 5 matvecs.
@@ -49,8 +65,8 @@ trace of 5 matvecs.
 Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11 and times it at the n of each path beside
 its bound.  The ``kernels`` line counts the kernel's launches on the four
-paths (phases 6, 8, 10 and 11); the launches of the comparisons do not
-count.
+paths (phases 6, 8, 10 and 11) and the steps of phase 12; the launches of
+the comparisons and of phase 12's standalone CG solves do not count.
 
 It needs a CUDA device and ``nvcc`` (the CUDA toolkit), and imports no JAX.
 """
@@ -61,8 +77,10 @@ import functools
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -251,19 +269,22 @@ def phase_small_slice():
           f"final losses {gpu['final_losses']} vs {cpu['final_losses']}")
 
 
-def run_steps(opt, batch, steps, path):
-    """``steps`` HF steps of ``opt`` on ``batch``, each printed; fails on a
-    non-finite loss, a step whose final loss exceeds its initial loss, or
+def run_steps(opt, batch, steps, path, each=None, **step_kwargs):
+    """``steps`` HF steps of ``opt`` on ``batch`` (``opt.step(batch,
+    **step_kwargs)``), each printed and passed to ``each(stats)``; fails on
+    a non-finite loss, a step whose final loss exceeds its initial loss, or
     kernel launches other than the CG iterations.  Returns the launches."""
     first = len(opt.history["init_losses"])
     ops.fused_cg_update.launches = 0
     for i in range(first, first + steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt.step(batch)
+        opt.step(batch, **step_kwargs)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         s, h = opt.last_stats, opt.history
+        if each is not None:
+            each(s)
         print(f"step {i}: loss {h['init_losses'][i]:.6f} -> "
               f"{h['final_losses'][i]:.6f} | damping {float(s.damping):.6f} "
               f"-> {float(s.new_damping):.6f} | cg {s.num_cg_iters} iters "
@@ -287,8 +308,10 @@ def run_steps(opt, batch, steps, path):
     return launches
 
 
-def phase_main():
-    """The main path: 3 HF steps of full-width ResNet-18/MNIST b32."""
+def resnet_main_path(**config):
+    """``HessianFree`` on full-width ResNet-18/MNIST b32 as ``bench.py``
+    builds it, ``HFConfig(damping=1.0, cg_max_iter=50, **config)``, with
+    the seed-0 weights and batch; returns ``(opt, batch, generator)``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_resnet18(gen, device="cuda")
     count = sum(t.numel() for t in tree_flatten(params)[0])
@@ -296,13 +319,24 @@ def phase_main():
         raise AssertionError(f"ResNet-18 has {count} parameters")
     x = torch.randn((32, 28, 28, 1), generator=gen, device="cuda")
     y = torch.randint(0, 10, (32,), generator=gen, device="cuda")
-    opt = pkg.HessianFree(
+    return resnet_opt(params, **config), (x, y), gen
+
+
+def resnet_opt(params, **config):
+    """``HessianFree`` on ResNet-18 with the main path's configuration."""
+    return pkg.HessianFree(
         params,
         model_fn=models.resnet18_apply,
         loss_outer=models.cross_entropy_loss,
-        config=pkg.HFConfig(damping=1.0, cg_max_iter=50),
+        config=pkg.HFConfig(damping=1.0, cg_max_iter=50, **config),
         pad_to_multiple=1024,
     )
+
+
+def phase_main():
+    """The main path: 3 HF steps of full-width ResNet-18/MNIST b32."""
+    opt, (x, y), gen = resnet_main_path()
+    count = opt.ravel.unpadded_dim
     if opt.ravel.dim != MAIN_N:
         raise AssertionError(f"flat dimension {opt.ravel.dim}")
     print(f"main path: ResNet-18, {count} parameters, flat dim "
@@ -755,6 +789,247 @@ def phase_moe_lm():
     return launches
 
 
+def with_peak(fn):
+    """``(fn(), ms, peak)``: the host-clock time of ``fn`` and the peak
+    device memory it allocates above what was allocated before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, torch.cuda.max_memory_allocated() - base
+
+
+def walk_margin(bt_f):
+    """The smallest relative gap between a loss that the sequential
+    backtracking walk compared and the running minimum it compared it
+    with; inf if it compared none."""
+    walked = [v for v in reversed(bt_f.tolist()) if not math.isnan(v)]
+    gaps, f_min = [], walked[0]
+    for v in walked[1:]:
+        gaps.append(abs(v - f_min) / abs(f_min))
+        f_min = min(f_min, v)
+    return min(gaps, default=math.inf)
+
+
+def armijo_margin(stats, grad, delta, c):
+    """The smallest relative gap between a loss the sequential line search
+    tried and its Armijo bound ``f0 + alpha * c * grad . step``, with the
+    step recovered from the update ``delta = lr * step``; inf if no step
+    was taken."""
+    lr, f0 = float(stats.lr), float(stats.init_loss)
+    if lr == 0:
+        return math.inf
+    c_dir = c * float(grad @ delta) / lr
+    return min(
+        abs(f - (f0 + a * c_dir)) / abs(f0)
+        for a, f in zip(stats.detail.ls_alphas.tolist(),
+                        stats.detail.ls_f.tolist())
+        if not math.isnan(f)
+    )
+
+
+def phase_resnet_features():
+    """Phase 12: the Nystrom sketch, the spectrum, preconditioned and
+    bf16-stored CG, rich stats, the batched selection and checkpoints on
+    the main path (see the module docstring).  Returns the kernel launches
+    of its steps."""
+    torch.backends.cudnn.deterministic = True  # for the bitwise checks
+    opt, batch, _ = resnet_main_path(rich_stats=True)
+    ravel = opt.ravel
+    n = ravel.unpadded_dim
+    print(f"phase 12: ResNet-18/MNIST b32 as in phase 6 (flat dim "
+          f"{ravel.dim}, {n} parameters), rich_stats, cuDNN deterministic")
+
+    # a) the sketch of the GGN at the start
+    def sketch_gen():
+        return torch.Generator("cuda").manual_seed(1)
+
+    sketch, ms, peak = with_peak(lambda: opt.get_nystrom_sketch(
+        batch, rank=32, generator=sketch_gen()))
+    U, eigs = sketch
+    orth = float((U.T @ U - torch.eye(32, device="cuda")).abs().max())
+    # the build's share, then the sketch again from the built matvec
+    (_, grad, mvp), build_ms, _ = with_peak(
+        lambda: optimizer._build_matvec_and_grad(
+            opt.fns, opt.config, ravel, opt.params, batch))
+    probes = pkg.normalized_probes(sketch_gen(), 32, n, ravel.dtype,
+                                   pad_to=ravel.dim)
+    again, again_ms, _ = with_peak(lambda: pkg.nystrom_sketch(mvp, probes))
+    again_err = float(((again.eigs - eigs).abs() / eigs).max())
+    u1 = U[:, 0]
+    top = float(u1 @ mvp(u1))
+    e = eigs.tolist()
+    if not (min(e) >= 0 and all(a >= b for a, b in zip(e, e[1:]))
+            and orth <= 1e-4 and top >= e[0] * (1 - 1e-3)):
+        raise AssertionError(f"sketch: eigs {e}, |U^T U - I| {orth}, "
+                             f"u1^T A u1 {top}")
+    print(f"a) rank-32 Nystrom sketch: build {ms:.1f} ms, peak "
+          f"{gib(peak):.2f} GiB above the baseline; eigs {e[0]:.6g} .. "
+          f"{e[-1]:.6g}, all >= 0 and descending; |U^T U - I|_max "
+          f"{orth:.2e}; u1^T A u1 = {top:.6g} >= eigs[0]; of it: the "
+          f"matvec build (loss, gradient, linearize) {build_ms:.1f} ms, the "
+          f"sketch from the built matvec {again_ms:.1f} ms (eigs within "
+          f"{again_err:.1e} of the first)")
+    del again
+
+    # e) the spectrum at the same parameters
+    def spec_gen():
+        return torch.Generator("cuda").manual_seed(2)
+
+    (ritz_res, (nodes, weights)), ms, peak = with_peak(
+        lambda: opt.estimate_spectrum(batch, num_iters=32, num_probes=4,
+                                      generator=spec_gen()))
+    probes = pkg.normalized_probes(spec_gen(), 5, n, ravel.dtype,
+                                   pad_to=ravel.dim)[1:]
+    # v^T A v through the batched matvec that SLQ's Lanczos runs make, and
+    # through the single one
+    quad = n * float((torch.func.vmap(mvp)(probes) * probes).sum(1).mean())
+    single = n * statistics.fmean(float(v @ mvp(v)) for v in probes)
+    trace = float(pkg.slq_trace(nodes, weights, n))
+    if not math.isclose(trace, quad, rel_tol=1e-4):
+        raise AssertionError(f"SLQ trace {trace} vs dim * mean v^T A v {quad}")
+    vals = ritz_res.values.tolist()
+    bounds = ritz_res.residual_bounds.tolist()
+    print(f"e) 32-step Lanczos + 4-probe SLQ: {ms:.1f} ms, peak "
+          f"{gib(peak):.2f} GiB above the baseline; Ritz values "
+          f"{', '.join(f'{v:.6g}' for v in vals[:5])} ... {vals[-1]:.6g}; "
+          f"residual bounds {bounds[0]:.3g} (top), {max(bounds):.3g} (max); "
+          f"lambda_max {vals[0]:.6g} beside the sketch's eigs[0] "
+          f"{e[0]:.6g}; SLQ trace {trace:.6g} = dim * mean v^T A v "
+          f"{quad:.6g} (rtol 1e-4; {single:.6g} through single matvecs)")
+
+    # b) the next step's damped system: plain, bf16-stored, preconditioned
+    damping = opt.state.damping
+
+    def A(v):
+        return mvp(v) + damping * v
+
+    kw = dict(x0=opt.state.x0, max_iter=50, martens_conv_crit=True,
+              store_x_at_iters=None)
+    plain = pkg.cg(A, -grad, **kw)
+    low = pkg.cg(A, -grad, store_dtype="bfloat16", **kw)
+    pre = pkg.cg(A, -grad, M=pkg.nystrom_to_preconditioner(sketch, damping),
+                 **kw)
+    if not ((low.num_iters, low.reason) == (plain.num_iters, plain.reason)
+            and torch.equal(low.x, plain.x)
+            and torch.equal(low.m_hist, plain.m_hist)
+            and low.x_buf.dtype == torch.bfloat16
+            and torch.equal(low.x_buf, plain.x_buf.to(torch.bfloat16))):
+        raise AssertionError("bf16-stored CG differs from the f32-stored one")
+    print(f"b) the damped system at damping {float(damping):g}: CG "
+          f"{plain.num_iters} iters ({pkg.cg_reason_str(plain.reason)}); "
+          f"Nystrom-preconditioned {pre.num_iters} iters "
+          f"({pkg.cg_reason_str(pre.reason)}); bf16-stored: the same "
+          f"iterations, x and m-history bit for bit, x_buf "
+          f"{str(low.x_buf.dtype)[6:]} {tuple(low.x_buf.shape)}")
+    del plain, low, pre, mvp, grad
+
+    # c) two Nystrom-preconditioned steps with rich stats
+    def detail_finite(s):
+        m = s.detail.m_hist[: s.num_cg_iters + 1]
+        if not bool(torch.isfinite(m).all()):
+            raise AssertionError(f"m-history not finite: {m}")
+
+    launches = run_steps(opt, batch, 2, "phase 12's preconditioned steps",
+                         each=detail_finite, precond_lowrank=sketch)
+    text = pkg.format_rich_stats(opt.last_stats).splitlines()
+    m_lines = [ln for ln in text if "  m = " in ln]
+    rest = [ln for ln in text if "  m = " not in ln]
+    print(f"c) format_rich_stats of the last step, {len(text)} lines; "
+          f"{rest[0]} {m_lines[0].strip()} ... {m_lines[-1].strip()}")
+    print("\n".join(rest[1:]))
+    del sketch
+
+    # d) sequential and batched selection from one saved state
+    saved, start = opt.state_dict(), opt.params
+    runs = {}
+    for mode in ("sequential", "batched"):
+        o = resnet_opt(start, rich_stats=True, backtracking_mode=mode,
+                       linesearch=pkg.LineSearchConfig(mode=mode))
+        o.load_state_dict(saved)
+        launches += run_steps(o, batch, 1, f"the {mode} selection step")
+        runs[mode] = o
+    seq, bat = (runs[m].last_stats for m in ("sequential", "batched"))
+    if (seq.num_cg_iters, seq.cg_reason) != (bat.num_cg_iters, bat.cg_reason):
+        raise AssertionError("the two selection modes ran other CG solves")
+    diffs = []
+    for name in ("bt_f", "ls_f"):
+        a, b = getattr(seq.detail, name), getattr(bat.detail, name)
+        both = ~(torch.isnan(a) | torch.isnan(b))
+        diffs.append(float(((a - b).abs() / b.abs())[both].max()))
+    _, g_tree = value_and_grad(lambda p: opt.fns.full_loss(p, batch), start)
+    bt_margin = walk_margin(seq.detail.bt_f)
+    ls_margin = armijo_margin(
+        seq, ravel.ravel(g_tree),
+        ravel.ravel(runs["sequential"].params) - ravel.ravel(start),
+        opt.config.linesearch.c)
+    same_bt = seq.best_cg_iter == bat.best_cg_iter
+    same_lr = math.isclose(float(seq.lr), float(bat.lr), rel_tol=1e-6)
+    if not (max(diffs) <= 1e-4 and (same_bt or bt_margin <= 1e-4)
+            and (same_lr or ls_margin <= 1e-4)):
+        raise AssertionError(
+            f"selection: shared losses differ by {diffs}; best iter "
+            f"{seq.best_cg_iter} vs {bat.best_cg_iter} (margin {bt_margin}),"
+            f" lr {float(seq.lr)} vs {float(bat.lr)} (margin {ls_margin})")
+    evaluated = [int((~torch.isnan(s.detail.bt_f)).sum()) for s in (seq, bat)]
+    print(f"d) sequential vs batched selection from one state: "
+          f"{seq.num_cg_iters} CG iters on both; best iter "
+          f"{seq.best_cg_iter} vs {bat.best_cg_iter}, lr {float(seq.lr):.6f}"
+          f" vs {float(bat.lr):.6f}; backtracking losses evaluated "
+          f"{evaluated[0]} vs {evaluated[1]}; shared losses within "
+          f"{max(diffs):.2e} (rtol 1e-4); margins: walk {bt_margin:.2e}, "
+          f"Armijo {ls_margin:.2e}")
+    del runs, seq, bat, g_tree
+
+    # f) bf16-stored against f32-stored iterates, one step each
+    stats, peaks = {}, {}
+    for store in (None, "bfloat16"):
+        o = resnet_opt(start, rich_stats=True,
+                       cg=pkg.CGConfig(store_dtype=store))
+        o.load_state_dict(saved)
+        steps, _, peaks[store] = with_peak(functools.partial(
+            run_steps, o, batch, 1, f"the {store or 'float32'}-stored step"))
+        launches += steps
+        stats[store] = o.last_stats
+        del o
+    a, b = stats[None], stats["bfloat16"]
+    if not ((a.num_cg_iters, a.cg_reason) == (b.num_cg_iters, b.cg_reason)
+            and torch.equal(a.detail.m_hist, b.detail.m_hist)):
+        raise AssertionError("the bf16-stored step ran another CG solve")
+    print(f"f) bf16- vs f32-stored iterates: {a.num_cg_iters} CG iters "
+          f"({pkg.cg_reason_str(a.cg_reason)}) and the m-history bit for bit "
+          f"on both; best iter {a.best_cg_iter} vs {b.best_cg_iter}; peak "
+          f"of the step {gib(peaks[None]):.3f} vs "
+          f"{gib(peaks['bfloat16']):.3f} GiB above the baseline")
+    del stats, a, b, start
+
+    # g) save, load into a fresh optimizer, one step each
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("torch", "npz"):
+            path = os.path.join(tmp, f"ckpt-{backend}")
+            opt.save(path, backend=backend)
+            fresh = resnet_opt(opt.params, rich_stats=True)
+            fresh.load(path, backend=backend)
+            launches += run_steps(opt, batch, 1, "the saved optimizer")
+            launches += run_steps(fresh, batch, 1, f"the {backend}-loaded one")
+            if not (opt.history == fresh.history
+                    and torch.equal(ravel.ravel(opt.params),
+                                    ravel.ravel(fresh.params))
+                    and all(torch.equal(x, y)
+                            for x, y in zip(opt.state, fresh.state))):
+                raise AssertionError(f"{backend}: the resumed step differs")
+            print(f"g) {backend} backend: save, load into a fresh optimizer, "
+                  f"one step each: parameters, state and history equal bit "
+                  f"for bit")
+            del fresh
+    torch.backends.cudnn.deterministic = False
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on a GPU.")
@@ -789,6 +1064,7 @@ def main():
     phase_lm_narrow()
     launches += phase_decoder_lm()
     launches += phase_moe_lm()
+    launches += phase_resnet_features()
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",

@@ -4,9 +4,14 @@ Port of the JAX package :mod:`pytorchhessianfree_tpu` to PyTorch on an
 NVIDIA H100: the same module layout, public names and solver semantics
 (Martens' Hessian-free optimizer with GGN/Hessian matvecs, CG with Martens'
 stop, Levenberg-Marquardt damping, CG backtracking and an Armijo line
-search).  Plain tensor code is PyTorch; the CG vector phase is a CUDA
-kernel written for Hopper (:func:`~.ops.cg_update.fused_cg_update`).  This
-package never imports JAX.
+search, Nystrom preconditioning, Lanczos/SLQ spectra and checkpoints).
+Plain tensor code is PyTorch; the CG vector phase is a CUDA kernel written
+for Hopper (:func:`~.ops.cg_update.fused_cg_update`).  This package never
+imports JAX.
+
+As in the JAX package, ``checkpoint`` is the checkpoint module
+(:mod:`.checkpoint`); the rematerializing wrapper is
+:func:`.utils.remat.checkpoint`.
 """
 
 from .config import CGConfig, HFConfig, LineSearchConfig
@@ -20,9 +25,25 @@ from .ops.precond import (
     diag_EF_scan,
     diag_to_preconditioner,
 )
+from .ops.nystrom import (
+    NystromSketch,
+    nystrom_sketch,
+    nystrom_to_preconditioner,
+)
+from .ops.spectrum import (
+    LanczosResult,
+    RitzResult,
+    lanczos,
+    normalized_probes,
+    ritz,
+    slq,
+    slq_density,
+    slq_trace,
+)
 from .ops.select import (
     BacktrackResult,
     LinesearchResult,
+    cg_backtracking,
     cg_efficient_backtracking,
     simple_linesearch,
 )
@@ -37,11 +58,13 @@ from .accumulate import (
 )
 from .optimizer import (
     HessianFree,
+    HFDetail,
     HFModelFns,
     HFState,
     HFStats,
     check_deterministic,
     check_reduction,
+    format_rich_stats,
     hf_acc_step,
     hf_step,
     init_state,
@@ -59,7 +82,7 @@ from .models import (
     transformer_apply,
 )
 from .utils.flatten import TrainableRavel
-from .utils.remat import checkpoint
+from . import checkpoint  # the checkpoint module, as in the JAX package
 
 __version__ = "0.1.0"
 
@@ -83,8 +106,20 @@ __all__ = [
     "diag_to_preconditioner",
     "BacktrackResult",
     "LinesearchResult",
+    "cg_backtracking",
     "cg_efficient_backtracking",
     "simple_linesearch",
+    "NystromSketch",
+    "nystrom_sketch",
+    "nystrom_to_preconditioner",
+    "LanczosResult",
+    "RitzResult",
+    "lanczos",
+    "normalized_probes",
+    "ritz",
+    "slq",
+    "slq_density",
+    "slq_trace",
     "StackedData",
     "acc_grad",
     "acc_loss",
@@ -96,6 +131,8 @@ __all__ = [
     "HFModelFns",
     "HFState",
     "HFStats",
+    "HFDetail",
+    "format_rich_stats",
     "check_deterministic",
     "check_reduction",
     "hf_acc_step",

@@ -4,7 +4,7 @@ Field-for-field port of :mod:`pytorchhessianfree_tpu.config`: the same
 frozen dataclasses, the same defaults and the same eager validation, so a
 config written for one package means the same thing in the other.
 
-Three groups of fields differ in what they do here:
+Two groups of fields differ in what they do here:
 
 - **Layout knobs with identical results** (``CGConfig.buffer_layout``,
   ``CGConfig.store_mode``, ``HFConfig.fused_trials``): they chose XLA buffer
@@ -17,13 +17,14 @@ Three groups of fields differ in what they do here:
   ``"highest"`` mean full f32 on both; ``"high"`` and ``"default"`` mean
   TF32 on both.  cuDNN convolutions default to TF32 on Hopper, so an unset
   knob has to switch it off explicitly.
-- **Knobs not ported yet** (``rich_stats``, the ``"batched"`` select modes
-  and ``CGConfig.store_dtype``) raise :class:`NotImplementedError` when set
-  away from their default, naming the ROADMAP.md item that ports them.
 
-``curvature_dtype`` (a reduced-precision matvec, for example
-``"bfloat16"``) and ``remat`` (rematerialized model forward) act as in the
-JAX package; see ``optimizer._build_matvec_and_grad``.
+Every other knob acts as in the JAX package: ``curvature_dtype`` (a
+reduced-precision matvec, for example ``"bfloat16"``) and ``remat``
+(rematerialized model forward) in ``optimizer._build_matvec_and_grad``;
+``CGConfig.store_dtype`` (the stored CG iterates in a reduced dtype) in
+:func:`~.ops.cg.cg`; the ``"batched"`` select modes (one ``vmap`` sweep
+over the candidates) in :mod:`~.ops.select`; ``rich_stats`` (the
+``HFDetail`` solver trace) in ``optimizer._step_core``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,15 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def float_dtype(name: str, what: str) -> torch.dtype:
+    """The floating torch dtype called ``name`` (e.g. ``"bfloat16"``);
+    ``what`` names the knob in the error."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"Unknown {what} {name!r}")
+    return dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class CGConfig:
     """Hyperparameters of the preconditioned-CG inner solver (see
@@ -54,6 +64,7 @@ class CGConfig:
     martens_min_window: int = 10
     grid_gamma: float = 1.3
     nonpos_curv_option: str = "ignore"
+    # dtype name of the stored backtracking iterates (e.g. "bfloat16")
     store_dtype: Optional[str] = None
     # layout knob of the XLA iterate buffer; no effect here
     buffer_layout: str = "flat"
@@ -69,8 +80,6 @@ class CGConfig:
             raise ValueError(f"Invalid gamma = {self.grid_gamma}")
         if self.nonpos_curv_option not in ("ignore", "saddle-free"):
             raise ValueError(f"Unknown option {self.nonpos_curv_option}.")
-        if self.store_dtype is not None:
-            raise not_ported("CGConfig.store_dtype", "item 15")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +103,6 @@ class LineSearchConfig:
             raise ValueError(f"Unknown line-search mode {self.mode}")
         if self.max_iter < 1:
             raise ValueError(f"Invalid line-search max_iter {self.max_iter}")
-        if self.mode != "sequential":
-            raise not_ported("LineSearchConfig.mode='batched'", "item 15")
 
 
 _TF32 = {None: False, "highest": False, "high": True, "default": True}
@@ -179,7 +186,3 @@ class HFConfig:
             raise ValueError(
                 f"Unknown matmul_precision {self.matmul_precision}"
             )
-        if self.backtracking_mode != "sequential":
-            raise not_ported("HFConfig.backtracking_mode='batched'", "item 15")
-        if self.rich_stats:
-            raise not_ported("HFConfig.rich_stats", "item 15")

@@ -8,7 +8,9 @@ Same semantics as the JAX solver, which follows the reference CG
   strict ``<`` on the residual bound ``max(tol * ||b||, atol)``;
 - Martens' window ``k = max(10, it // 10)`` and relative-progress threshold;
 - the iterate stored on the ``ceil(gamma^j) - 1`` grid into a ``[G, n]``
-  buffer, written only on grid iterations;
+  buffer, written only on grid iterations, optionally in a reduced
+  ``store_dtype`` (read back through :meth:`CGResult.row`, cast to the
+  iterate's dtype);
 - non-positive ``p.Ap`` flagged, and with ``"saddle-free"`` replaced by its
   absolute value.
 
@@ -27,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..config import float_dtype
 from .cg_update import fused_cg_update
 
 REASON_RUNNING = 0
@@ -64,7 +67,8 @@ class CGResult(NamedTuple):
     """Result of a CG solve.
 
     Row ``g`` of ``x_buf`` holds the iterate of iteration ``stored_iters[g]``
-    if that iteration was reached; the final iterate is ``x``.  Unlike the
+    if that iteration was reached, in the solve's ``store_dtype``; the final
+    iterate is ``x``.  Unlike the
     JAX result, ``num_iters`` and ``reason`` are host integers: the loop
     already read them back to decide termination.
     """
@@ -73,13 +77,14 @@ class CGResult(NamedTuple):
     num_iters: int  # CG iterations performed (>= 1)
     reason: int  # termination code, see CG_REASON_STRINGS
     x_buf: torch.Tensor  # [G, n] iterates stored at the grid iterations
+    # (in the store dtype)
     stored_iters: Tuple[int, ...]  # iteration number per buffer row
     m_hist: torch.Tensor  # [max_iter + 1] m(x_i); valid 0..num_iters
     nonpos_pAp: torch.Tensor  # bool, non-positive curvature detected
 
     def row(self, jc: int) -> torch.Tensor:
-        """Stored iterate of buffer row ``jc``."""
-        return self.x_buf[jc]
+        """Stored iterate of buffer row ``jc``, in the iterate's dtype."""
+        return self.x_buf[jc].to(self.x.dtype)
 
     @property
     def m_final(self) -> torch.Tensor:
@@ -106,6 +111,7 @@ def cg(
     martens_threshold: float = 5e-4,
     martens_min_window: int = 10,
     nonpos_curv_option: str = "ignore",
+    store_dtype: Optional[str] = None,
 ) -> CGResult:
     """Preconditioned CG for ``A x = b`` with Hessian-free modifications.
 
@@ -120,6 +126,9 @@ def cg(
         store_x_at_iters: iterations at which to store the iterate; ``None``
             selects the ``ceil(gamma^j) - 1`` grid, ``()`` stores nothing.
         nonpos_curv_option: "ignore" or "saddle-free".
+        store_dtype: dtype name (e.g. ``"bfloat16"``) of the stored
+            iterates; ``None`` stores them in ``b``'s dtype.  Only the
+            buffer is rounded: the iteration itself is the same.
     """
     if nonpos_curv_option not in ("ignore", "saddle-free"):
         raise ValueError(f"Unknown option {nonpos_curv_option}.")
@@ -153,7 +162,10 @@ def cg(
     ry = torch.dot(r, y)
     p = -y
 
-    x_buf = torch.zeros((max(G, 1), n), dtype=dtype, device=device)
+    sdtype = dtype if store_dtype is None else float_dtype(
+        store_dtype, "store_dtype"
+    )
+    x_buf = torch.zeros((max(G, 1), n), dtype=sdtype, device=device)
     if G and stored_iters[0] == 0:
         x_buf[0] = x
 

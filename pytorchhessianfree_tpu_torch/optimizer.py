@@ -7,26 +7,31 @@ closure -> damped CG with Martens' stop and the iterate grid -> warm-start
 decay -> CG backtracking -> Levenberg-Marquardt damping -> Armijo line
 search -> parameter update.  PyTorch runs it eagerly: the CG loop and the
 trial loops are Python loops that read one value back to the host per
-iteration, and the CG vector phase is the hand-written
-:func:`~.ops.cg_update.fused_cg_update` kernel on a card.
+iteration (a batched select mode reads one sweep back instead), and the CG
+vector phase is the hand-written :func:`~.ops.cg_update.fused_cg_update`
+kernel on a card.
 
 :func:`hf_step` is a function of ``(params, state, batch)`` that returns new
 tensors and leaves its inputs alone; :func:`hf_acc_step` is the same update
 over datalists (:mod:`.accumulate`); :func:`make_hf_train_loop` runs steps
 over a stacked batch with an optional EMA empirical-Fisher preconditioner.
 :class:`HessianFree` owns the parameter tree and keeps the reference's
-history lists.
+history lists; it also builds Nystrom sketches of the live curvature
+(:meth:`HessianFree.get_nystrom_sketch`), estimates its spectrum
+(:meth:`HessianFree.estimate_spectrum`) and saves and restores itself
+(:mod:`.checkpoint`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import accumulate as acc
-from .config import HFConfig, not_ported, precision_ctx
+from .config import HFConfig, float_dtype, not_ported, precision_ctx
 from .ops.cg import CG_REASON_STRINGS, cg
 from .ops.curvature import (
     ggn_matvec_fn,
@@ -42,7 +47,13 @@ from .ops.precond import (
     diag_EF_scan,
     diag_to_preconditioner,
 )
+from .ops.nystrom import (
+    NystromSketch,
+    nystrom_sketch,
+    nystrom_to_preconditioner,
+)
 from .ops.select import cg_efficient_backtracking, simple_linesearch
+from .ops.spectrum import normalized_probes, ritz, slq
 from .utils.flatten import TrainableRavel, tree_flatten, tree_map
 from .utils.remat import checkpoint
 
@@ -72,7 +83,23 @@ class HFStats(NamedTuple):
     rho_negative: torch.Tensor  # bool
     linesearch_failed: bool
     not_descent_direction: bool
-    detail: Any = None  # solver trace, not ported (HFConfig.rich_stats)
+    # HFDetail when config.rich_stats, else None: the data behind the
+    # reference's per-CG-iteration lines, backtracking table and line-search
+    # trace (reference cg.py:202-203, cg_backtracking.py:100-110,
+    # linesearch.py:57-102)
+    detail: Any = None
+
+
+class HFDetail(NamedTuple):
+    """Per-phase solver trace (``HFConfig.rich_stats=True``), on the
+    device, NaN in slots never evaluated; valid entries of ``m_hist`` are
+    ``0..num_cg_iters``."""
+
+    m_hist: torch.Tensor  # [cg_max_iter + 1] quadratic values m(x_i)
+    cand_iters: torch.Tensor  # [G+1] CG iteration per candidate (last=final)
+    bt_f: torch.Tensor  # [G+1] backtracking losses (NaN = not evaluated)
+    ls_alphas: torch.Tensor  # [ls_max_iter] trial step sizes (NaN = not tried)
+    ls_f: torch.Tensor  # [ls_max_iter] losses at the trials
 
 
 class HFModelFns(NamedTuple):
@@ -173,14 +200,21 @@ def _step_core(
         martens_threshold=config.cg.martens_threshold,
         martens_min_window=config.cg.martens_min_window,
         nonpos_curv_option=config.cg.nonpos_curv_option,
+        store_dtype=config.cg.store_dtype,
     )
 
     # warm start for the next step: the decayed FINAL iterate
     new_x0 = grad_vec.new_tensor(config.cg_decay_x0) * cgres.x
 
+    nan = grad_vec.new_tensor(float("nan"))
+    G1 = len(cgres.stored_iters) + 1
+    bt_f = ls_alphas = ls_f = None  # the rich_stats records
     if config.use_cg_backtracking:
-        bt = cg_efficient_backtracking(loss_at, cgres)
+        bt = cg_efficient_backtracking(
+            loss_at, cgres, mode=config.backtracking_mode
+        )
         step_vec, best_cg_iter, f_at_final = bt.step, bt.best_iter, bt.f_final
+        bt_f = bt.f_vals
     else:
         step_vec, best_cg_iter, f_at_final = cgres.x, cgres.num_iters, None
 
@@ -188,8 +222,9 @@ def _step_core(
         f_0 = loss_at(state.x0)  # loss at the warm start
         if f_at_final is None:
             f_at_final = loss_at(cgres.x)
+            # the final iterate's slot, as the JAX package records it
+            bt_f = torch.cat([nan.expand(G1 - 1), f_at_final[None]])
 
-    nan = grad_vec.new_tensor(float("nan"))
     if config.use_linesearch:
         ls = simple_linesearch(
             loss_at,
@@ -200,9 +235,12 @@ def _step_core(
             beta=config.linesearch.beta,
             c=config.linesearch.c,
             max_iter=config.linesearch.max_iter,
+            mode=config.linesearch.mode,
+            batch_chunk=config.linesearch.batch_chunk,
         )
         lr, final_loss = ls.alpha, ls.f_alpha
         ls_failed, not_descent = ls.failed, ls.not_descent
+        ls_alphas, ls_f = ls.alphas, ls.f_trace
     else:
         lr = grad_vec.new_tensor(config.lr)
         final_loss = (
@@ -221,6 +259,19 @@ def _step_core(
 
     new_params = ravel.add(params, lr * step_vec)
 
+    detail = None
+    if config.rich_stats:
+        empty = grad_vec.new_zeros(0)
+        detail = HFDetail(
+            m_hist=cgres.m_hist,
+            cand_iters=torch.tensor(
+                cgres.stored_iters + (cgres.num_iters,), device=grad_vec.device
+            ),
+            bt_f=nan.expand(G1).clone() if bt_f is None else bt_f,
+            ls_alphas=empty if ls_alphas is None else ls_alphas,
+            ls_f=empty if ls_f is None else ls_f,
+        )
+
     new_state = HFState(
         x0=new_x0, damping=new_damping, step_count=state.step_count + 1
     )
@@ -238,6 +289,7 @@ def _step_core(
         rho_negative=rho_negative,
         linesearch_failed=ls_failed,
         not_descent_direction=not_descent,
+        detail=detail,
     )
     return new_params, new_state, stats
 
@@ -269,12 +321,7 @@ def _cast_floating(tree, dtype):
 def _curvature_dtype(config: HFConfig) -> Optional[torch.dtype]:
     if config.curvature_dtype is None:
         return None
-    dtype = getattr(torch, config.curvature_dtype, None)
-    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise ValueError(
-            f"Unknown curvature_dtype {config.curvature_dtype!r}"
-        )
-    return dtype
+    return float_dtype(config.curvature_dtype, "curvature_dtype")
 
 
 def _build_matvec_and_grad(
@@ -392,16 +439,16 @@ def hf_step(
 
     ``M`` is an optional preconditioner matvec on flat vectors.  Without
     it, ``precond_diag`` (an empirical-Fisher diagonal) gives Martens'
-    ``(D + damping)^(-precond_exponent)`` with the *live* damping; without
-    either, ``config.precond="diag_ef"`` computes the diagonal from this
-    step's batch and uses ``config.precond_exponent``.  Custom
+    ``(D + damping)^(-precond_exponent)`` with the *live* damping;
+    ``precond_lowrank`` (a :class:`~.ops.nystrom.NystromSketch`) gives the
+    low-rank ``(A + damping I)^{-1}`` approximation, also with the live
+    damping; without any, ``config.precond="diag_ef"`` computes the
+    diagonal from this step's batch and uses ``config.precond_exponent``.
+    Custom
     ``grad_vec`` / ``mvp_vec`` override the derived gradient and curvature
     matvec.  ``config.matmul_precision`` sets the TF32 switches for the
     whole step.
     """
-    if precond_lowrank is not None:
-        raise not_ported("Low-rank preconditioning (precond_lowrank)",
-                         "item 18")
     with precision_ctx(config):
         loss, derived_grad, derived_mvp = _build_matvec_and_grad(
             fns, config, ravel, params, batch
@@ -411,6 +458,8 @@ def hf_step(
             M = diag_to_preconditioner(
                 precond_diag, state.damping, precond_exponent
             )
+        elif M is None and precond_lowrank is not None:
+            M = nystrom_to_preconditioner(precond_lowrank, state.damping)
         elif M is None and config.precond == "diag_ef":
             if fns.model_fn is None:
                 raise ValueError(
@@ -448,9 +497,9 @@ def make_hf_step(
     ravel: TrainableRavel,
     precond_exponent: float = 0.75,
 ):
-    """``step(params, state, batch, precond_diag=None) -> (params, state,
-    stats)``: the counterpart of the JAX package's jitted step (PyTorch runs
-    it eagerly)."""
+    """``step(params, state, batch, precond_diag=None, precond_lowrank=None)
+    -> (params, state, stats)``: the counterpart of the JAX package's jitted
+    step (PyTorch runs it eagerly)."""
 
     def step(params, state, batch, precond_diag=None, precond_lowrank=None):
         if precond_diag is not None and precond_lowrank is not None:
@@ -468,14 +517,17 @@ def make_hf_step(
 
 def _stack_stats(per_step) -> HFStats:
     """Per-step :class:`HFStats` -> one whose fields have a leading steps
-    axis.  Fields that the host already read (CG counts, flags) become CPU
+    axis, :class:`HFDetail` included (as the JAX package's scan stacks
+    it).  Fields that the host already read (CG counts, flags) become CPU
     tensors."""
     fields = {}
     for name in HFStats._fields:
-        if name == "detail":
-            continue
         values = [getattr(s, name) for s in per_step]
-        if isinstance(values[0], torch.Tensor):
+        if name == "detail":
+            fields[name] = None if values[0] is None else HFDetail(
+                *(torch.stack(f) for f in zip(*values))
+            )
+        elif isinstance(values[0], torch.Tensor):
             fields[name] = torch.stack(values)
         else:
             fields[name] = torch.tensor(values)
@@ -638,6 +690,53 @@ def make_hf_acc_step(
     return step
 
 
+def format_rich_stats(stats: HFStats) -> str:
+    """Pretty-print an ``HFStats.detail`` record in the reference's verbose
+    style: per-CG-iteration m-values (reference cg.py:202-203), the
+    backtracking table (reference cg_backtracking.py:100-110) and the
+    line-search trace (reference linesearch.py:57-102).  The same text as
+    the JAX package's ``format_rich_stats`` for the same numbers."""
+    import numpy as np
+
+    def host(t):
+        return np.asarray(t.detach().cpu())
+
+    d = stats.detail
+    if d is None:
+        return "(no detail recorded -- set HFConfig.rich_stats=True)"
+    out = []
+    num = int(stats.num_cg_iters)
+    m = host(d.m_hist)
+    out.append(f"CG m-history ({num} iterations):")
+    for i in range(num + 1):
+        out.append(f"  cg-iter {i:4d}  m = {m[i]: .9e}")
+
+    out.append("Backtracking (reverse walk, NaN = skipped by early exit):")
+    cand = host(d.cand_iters)
+    bt = host(d.bt_f)
+    best = int(stats.best_cg_iter)
+    for j in range(len(cand) - 1, -1, -1):
+        if j < len(cand) - 1 and cand[j] >= cand[-1]:
+            continue  # buffer rows at/past the final iterate (never reached)
+        chosen = int(cand[j]) == best and not np.isnan(bt[j])
+        tag = " <-- chosen" if chosen else ""
+        fstr = "   (skipped)" if np.isnan(bt[j]) else f"f = {bt[j]: .9e}"
+        out.append(f"  cg-iter {int(cand[j]):4d}  {fstr}{tag}")
+
+    if d.ls_alphas.shape[0]:
+        out.append("Line search (Armijo):")
+        al = host(d.ls_alphas)
+        fl = host(d.ls_f)
+        for i in range(len(al)):
+            if np.isnan(al[i]) and np.isnan(fl[i]):
+                continue
+            mark = " <-- accepted" if al[i] == float(stats.lr) else ""
+            out.append(f"  alpha = {al[i]:.6f}  f = {fl[i]: .9e}{mark}")
+        if bool(stats.linesearch_failed):
+            out.append("  no alpha accepted -> alpha = 0 (no update)")
+    return "\n".join(out)
+
+
 # -- debug self-tests (reference optimizer.py:365-448, :817-926) -------------
 
 
@@ -775,6 +874,12 @@ def check_reduction(
         )
 
 
+_BACKEND_ERROR = (
+    "Unknown checkpoint backend {!r}: the port has 'torch' (torch.save) "
+    "and 'npz' (the JAX package's npz layout); Orbax is not ported."
+)
+
+
 class HessianFree:
     """Stateful Hessian-free optimizer owning the parameter tree.
 
@@ -793,6 +898,9 @@ class HessianFree:
         config: :class:`HFConfig`; or pass its fields as keyword args.
         pad_to_multiple: flat-space padding (see :class:`TrainableRavel`).
         mesh: not ported (ROADMAP.md, queue 1, item 20).
+
+    :meth:`save` and :meth:`load` checkpoint the parameters, the optimizer
+    state and the history (:mod:`.checkpoint`).
     """
 
     def __init__(
@@ -846,9 +954,8 @@ class HessianFree:
     def _append_history(self, stats: HFStats, i=None):
         """Append one step to the history; ``i`` indexes stacked stats."""
         if i is not None:
-            stats = HFStats(*(
-                None if v is None else v[i] for v in stats
-            ))
+            # every field but the last, detail, which the history skips
+            stats = HFStats(*(v[i] for v in stats[:-1]))
         h = self.history
         h["init_losses"].append(float(stats.init_loss))
         h["final_losses"].append(float(stats.final_loss))
@@ -884,6 +991,8 @@ class HessianFree:
                 f"iter {stats.best_cg_iter} | lr {float(stats.lr):.6f}"
                 + (f" | flags: {', '.join(flags)}" if flags else "")
             )
+            if stats.detail is not None:
+                print(format_rich_stats(stats))
         return float(stats.final_loss)
 
     def step(
@@ -900,11 +1009,23 @@ class HessianFree:
         (reference optimizer.py:126-363).  ``M``, ``grad_vec`` and ``mvp``
         are the reference's ``M_func``, ``grad`` and ``mvp`` arguments;
         ``precond_diag`` (from :meth:`get_preconditioner`) is preconditioned
-        with ``config.precond_exponent`` and the live damping.
+        with ``config.precond_exponent`` and the live damping;
+        ``precond_lowrank`` (from :meth:`get_nystrom_sketch`) is the low-rank
+        ``(A + damping I)^{-1}`` approximation with the live damping.
         ``test_deterministic=True`` runs :meth:`test_deterministic` first and
         warns if it finds randomness."""
         if test_deterministic:
             self._warn_if_nondeterministic(batch)
+        if precond_lowrank is not None and (
+            precond_diag is not None or M is not None or mvp is not None
+            or grad_vec is not None
+        ):
+            raise ValueError(
+                "precond_lowrank cannot be combined with precond_diag, "
+                "M, mvp or grad_vec; build the preconditioner closure "
+                "explicitly (ops.nystrom.nystrom_to_preconditioner) and "
+                "pass it as M for custom compositions."
+            )
         if M is not None and precond_diag is not None:
             raise ValueError("Pass either M or precond_diag, not both.")
         self.params, self.state, stats = hf_step(
@@ -1013,11 +1134,82 @@ class HessianFree:
             fns_factory=fns_factory, batch_factory=batch_factory,
         )
 
-    def get_nystrom_sketch(self, *args, **kwargs):
-        raise not_ported("get_nystrom_sketch", "item 18")
+    def _probes(self, count, generator, seed):
+        """``count`` unit Rademacher rows in the unpadded subspace, zero on
+        the padding tail, drawn from ``generator`` (a CPU generator seeded
+        with ``seed`` if none is given, so one seed gives the same probes
+        on every device) and moved to the ravel's device."""
+        ravel = self.ravel
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        probes = normalized_probes(
+            generator, count, ravel.unpadded_dim, ravel.dtype,
+            pad_to=ravel.dim if ravel.dim != ravel.unpadded_dim else None,
+        )
+        return probes.to(ravel.device)
 
-    def estimate_spectrum(self, *args, **kwargs):
-        raise not_ported("estimate_spectrum", "item 18")
+    def _live_matvec(self, batch, curvature):
+        """The undamped matvec that this step's CG would solve against on
+        ``batch`` (``curvature`` overrides ``config.curvature_opt``); call
+        under :func:`precision_ctx`."""
+        config = self.config
+        if curvature is not None:
+            config = dataclasses.replace(config, curvature_opt=curvature)
+        return _build_matvec_and_grad(
+            self.fns, config, self.ravel, self.params, batch
+        )[2]
+
+    def get_nystrom_sketch(
+        self,
+        batch,
+        *,
+        rank: int = 32,
+        generator: Optional[torch.Generator] = None,
+        curvature: Optional[str] = None,
+        seed: int = 0,
+    ) -> NystromSketch:
+        """Rank-``rank`` randomized Nystrom eigensketch of the live curvature
+        operator (the params, batch and curvature configuration the step's
+        CG solves against); pass it to :meth:`step` as ``precond_lowrank``.
+
+        Cost: one matvec build and ``rank`` matvecs in one ``vmap``.  The
+        sketch can serve several steps while the curvature drifts slowly.
+        ``curvature`` overrides ``config.curvature_opt``; the sketch assumes
+        a PSD operator, so on the Hessian negative eigenvalues are clipped.
+        """
+        probes = self._probes(rank, generator, seed)
+        with precision_ctx(self.config):
+            return nystrom_sketch(self._live_matvec(batch, curvature), probes)
+
+    def estimate_spectrum(
+        self,
+        batch,
+        *,
+        num_iters: int = 32,
+        num_probes: int = 0,
+        generator: Optional[torch.Generator] = None,
+        curvature: Optional[str] = None,
+        seed: int = 0,
+    ):
+        """Spectral diagnostics of the live curvature operator: Ritz values
+        of one ``num_iters``-step Lanczos run with full reorthogonalization
+        and, if ``num_probes > 0``, SLQ with that many Rademacher probes
+        (feed the nodes and weights to :func:`~.ops.spectrum.slq_trace` /
+        :func:`~.ops.spectrum.slq_density` with ``dim =
+        self.ravel.unpadded_dim``).  ``curvature`` overrides
+        ``config.curvature_opt`` (e.g. to look for saddles of the Hessian
+        while training with the GGN).
+
+        Returns a :class:`~.ops.spectrum.RitzResult` (values descending), or
+        ``(RitzResult, (nodes, weights))`` when ``num_probes > 0``.
+        """
+        probes = self._probes(1 + num_probes, generator, seed)
+        with precision_ctx(self.config):
+            mvp = self._live_matvec(batch, curvature)
+            r = ritz(mvp, probes[0], num_iters)
+            if num_probes:
+                return r, slq(mvp, probes[1:], num_iters)
+        return r
 
     def state_dict(self) -> dict:
         """Snapshot of the optimizer state (on the CPU) and the history."""
@@ -1029,6 +1221,37 @@ class HessianFree:
             "history": {k: list(v) for k, v in self.history.items()},
             "step_count": int(self.state.step_count),
         }
+
+    def save(self, path: str, backend: str = "torch") -> None:
+        """Checkpoint the parameters, the optimizer state and the history:
+        ``backend="torch"`` (:func:`.checkpoint.save`, a directory) or
+        ``"npz"`` (:func:`.checkpoint.save_npz`, the JAX package's npz
+        layout)."""
+        from . import checkpoint as ckpt
+
+        if backend == "torch":
+            ckpt.save(path, self.params, self.state, self.history)
+        elif backend == "npz":
+            ckpt.save_npz(path, self.params, self.state, self.history)
+        else:
+            raise ValueError(_BACKEND_ERROR.format(backend))
+
+    def load(self, path: str, backend: str = "torch") -> None:
+        """Restore a checkpoint written by :meth:`save` (or, with
+        ``backend="npz"``, by the JAX package's ``save_npz``) onto the
+        ravel's device; training continues as if it had not stopped."""
+        from . import checkpoint as ckpt
+
+        if backend == "torch":
+            params, state, history = ckpt.restore(path)
+        elif backend == "npz":
+            params, state, history = ckpt.restore_npz(path, self.params)
+        else:
+            raise ValueError(_BACKEND_ERROR.format(backend))
+        dev = self.ravel.device
+        self.params = tree_map(lambda t: t.to(dev), params)
+        self.state = HFState(*(t.to(dev) for t in state))
+        self.history.update(history)
 
     def load_state_dict(self, sd: dict) -> None:
         s = sd["state"]

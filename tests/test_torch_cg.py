@@ -148,3 +148,37 @@ def test_nan_divergence_matches_jax():
     j, t = _solve_both(a, b, max_iter=10)
     assert t.reason == int(j.reason) == tcg.REASON_DIVERGENCE
     assert t.num_iters == int(j.num_iters)
+
+
+@pytest.mark.parametrize("store_dtype", ["bfloat16", "float16", "float32"])
+def test_store_dtype_rounds_only_the_stored_iterates(store_dtype):
+    """CGConfig.store_dtype: the iteration is bitwise that of the full
+    precision store; rows read back through ``row`` in the iterate's
+    dtype, as the JAX package's selection casts them."""
+    a, b, _ = _spd(40, 3)
+    A, rhs = torch.tensor(a), torch.tensor(b)
+    kw = dict(max_iter=30, martens_conv_crit=True, store_x_at_iters=None)
+    full = tcg.cg(lambda v: A @ v, rhs, **kw)
+    low = tcg.cg(lambda v: A @ v, rhs, store_dtype=store_dtype, **kw)
+    assert (low.num_iters, low.reason) == (full.num_iters, full.reason)
+    for name in ("x", "m_hist", "nonpos_pAp"):
+        assert torch.equal(getattr(low, name), getattr(full, name)), name
+    assert low.x_buf.dtype == getattr(torch, store_dtype)
+    torch.testing.assert_close(low.x_buf, full.x_buf.to(low.x_buf.dtype),
+                               rtol=0, atol=0)
+    assert low.row(2).dtype == torch.float64
+    assert torch.equal(low.row(2), full.x_buf[2].to(low.x_buf.dtype).double())
+    j = jcg.cg(lambda v: jnp.asarray(a) @ v, jnp.asarray(b),
+               store_dtype=store_dtype, **kw)
+    assert str(j.x_buf.dtype) == store_dtype
+    reached = low.reached().numpy()
+    np.testing.assert_allclose(low.x_buf.double().numpy()[reached],
+                               np.asarray(j.x_buf, np.float64)[reached],
+                               rtol=1e-2 if store_dtype != "float32" else 1e-9,
+                               atol=1e-3)
+
+
+def test_unknown_store_dtype_raises():
+    with pytest.raises(ValueError, match="store_dtype"):
+        tcg.cg(lambda v: v, torch.ones(3, dtype=torch.float64),
+               store_dtype="bfloat15")

@@ -75,9 +75,18 @@ def test_zero_damping_disables_adaptation_like_jax():
     ],
 )
 def test_unported_knobs_raise_and_name_roadmap(name, kwargs):
-    getattr(jcfg, name)(**kwargs)  # valid in the JAX package
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(tcfg, name)(**kwargs)
+    """Once refused as not ported; now each knob builds in both packages
+    with the same fields."""
+    j = _defaults(getattr(jcfg, name)(**kwargs))
+    t = _defaults(getattr(tcfg, name)(**kwargs))
+    assert list(j) == list(t)
+    for key in j:
+        if dataclasses.is_dataclass(j[key]):
+            assert _defaults(j[key]) == _defaults(t[key]), key
+        else:
+            assert j[key] == t[key], key
+    for key, value in kwargs.items():
+        assert t[key] == value
 
 
 @pytest.mark.parametrize(

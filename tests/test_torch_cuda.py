@@ -1,7 +1,9 @@
 """The CUDA kernel on a card: ``fused_cg_update`` against its plain version,
 CG (plain and preconditioned) on the card against CG on the CPU, the
 empirical-Fisher diagonal and the LM matvecs on the card against the CPU,
-and the peak memory that rematerialization saves on the card.
+the peak memory that rematerialization saves on the card, and the Nystrom
+sketch, Lanczos/SLQ, the batched select modes, the reduced-precision
+iterate store and checkpoints on the card against the CPU.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -279,3 +281,95 @@ def test_remat_cuts_peak_memory_on_card(cuda, product):
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated() - base)
     assert peaks[1] < 0.5 * peaks[0], peaks
+
+
+def _narrow_resnet_opt(dev, **config):
+    from pytorchhessianfree_tpu_torch import HessianFree, HFConfig
+    from pytorchhessianfree_tpu_torch.models import (
+        init_resnet18,
+        resnet18_apply,
+    )
+
+    gen = torch.Generator().manual_seed(1)
+    params = init_resnet18(gen, width_scale=1 / 16, dtype=torch.float64)
+    x = torch.randn((4, 28, 28, 1), generator=gen, dtype=torch.float64)
+    y = torch.randint(0, 10, (4,), generator=gen)
+    opt = HessianFree(tree_map(lambda t: t.to(dev), params),
+                      model_fn=resnet18_apply, loss_outer=cross_entropy_loss,
+                      config=HFConfig(damping=1.0, cg_max_iter=5, **config))
+    return opt, (x.to(dev), y.to(dev))
+
+
+def test_nystrom_and_spectrum_on_card_match_cpu(cuda):
+    """The sketch and the Lanczos/SLQ runs vmap the step's linearized
+    conv-model matvec; on the same probes the card gives the CPU's
+    numbers.  SLQ's nodes are not compared: without reorthogonalization
+    this badly conditioned GGN turns last-bit differences into percent
+    ones within 12 iterations (test_torch_spectrum.py's
+    ``test_slq_trace_survives_last_bit_noise_that_moves_its_nodes``); its
+    trace rests on the first Lanczos coefficient alone."""
+    from pytorchhessianfree_tpu_torch import slq_trace
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        opt, batch = _narrow_resnet_opt(dev)
+        sk = opt.get_nystrom_sketch(batch, rank=8, seed=2)
+        res, (nodes, weights) = opt.estimate_spectrum(
+            batch, num_iters=12, num_probes=3, seed=3)
+        assert sk.U.device.type == dev.type
+        out.append([sk.eigs.cpu(), res.values.cpu(),
+                    slq_trace(nodes, weights, opt.ravel.unpadded_dim).cpu()])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-12)
+
+
+def test_batched_select_and_rich_stats_on_card_match_cpu(cuda):
+    from pytorchhessianfree_tpu_torch import LineSearchConfig
+
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        opt, batch = _narrow_resnet_opt(
+            dev, rich_stats=True, backtracking_mode="batched",
+            linesearch=LineSearchConfig(mode="batched", batch_chunk=8))
+        for _ in range(2):
+            opt.step(batch)
+        runs.append(opt)
+    gpu, cpu = runs
+    for key in ("num_cg_iters", "cg_reasons", "best_cg_iters"):
+        assert gpu.history[key] == cpu.history[key], key
+    for a, b in zip(gpu.last_stats.detail, cpu.last_stats.detail):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12,
+                                   equal_nan=True)
+
+
+def test_bf16_iterate_store_on_card_leaves_cg_unchanged(cuda):
+    rng = np.random.default_rng(2)
+    n = 512
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    A = torch.tensor((q * np.geomspace(1.0, 20.0, n)) @ q.T, device=cuda,
+                     dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal(n), device=cuda, dtype=torch.float32)
+    kw = dict(max_iter=40, martens_conv_crit=True, store_x_at_iters=None)
+    full = cg(lambda v: A @ v, b, **kw)
+    low = cg(lambda v: A @ v, b, store_dtype="bfloat16", **kw)
+    assert (low.num_iters, low.reason) == (full.num_iters, full.reason)
+    assert torch.equal(low.x, full.x) and torch.equal(low.m_hist, full.m_hist)
+    assert low.x_buf.dtype == torch.bfloat16
+    assert torch.equal(low.x_buf, full.x_buf.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("backend", ["torch", "npz"])
+def test_checkpoint_on_card_continues_bitwise(cuda, backend, tmp_path):
+    torch.backends.cudnn.deterministic = True
+    try:
+        opt, batch = _narrow_resnet_opt(cuda)
+        opt.step(batch)
+        opt.save(str(tmp_path / "ckpt"), backend=backend)
+        fresh, _ = _narrow_resnet_opt(cuda)
+        fresh.load(str(tmp_path / "ckpt"), backend=backend)
+        assert fresh.state.x0.device.type == "cuda"
+        assert fresh.step(batch) == opt.step(batch)
+        assert torch.equal(fresh.ravel.ravel(fresh.params),
+                           opt.ravel.ravel(opt.params))
+    finally:
+        torch.backends.cudnn.deterministic = False

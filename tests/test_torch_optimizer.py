@@ -260,15 +260,9 @@ def test_wrapper_refuses_what_is_not_ported():
     opt = thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                           loss_outer=mse_loss)
     batch = (torch.tensor(x), torch.tensor(y))
-    for call in (
-        lambda: opt.get_nystrom_sketch(batch),
-        lambda: opt.estimate_spectrum(batch),
-        lambda: opt.step(batch, precond_lowrank=object()),
-        lambda: thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
-                                loss_outer=mse_loss, mesh=object()),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
+                        loss_outer=mse_loss, mesh=object())
     with pytest.raises(ValueError, match="either M or precond_diag"):
         opt.step(batch, M=lambda v: v, precond_diag=torch.ones(opt.ravel.dim))
     with pytest.raises(ValueError, match="model_fn"):
@@ -288,3 +282,29 @@ def test_init_mlp_trains_with_cross_entropy():
                           loss_outer=cross_entropy_loss, cg_max_iter=20)
     losses = [opt.step((x, y)) for _ in range(4)]
     assert losses[-1] < opt.history["init_losses"][0]
+
+
+@pytest.mark.parametrize("combined", ["precond_diag", "M", "mvp", "grad_vec"])
+def test_precond_lowrank_validation_matches_jax(combined):
+    params, x, y = _mlp_problem(6)
+    t_opt = thf.HessianFree(params_from_jax(params, device="cpu"),
+                            model_fn=_t_mlp, loss_outer=mse_loss)
+    j_opt = jhf.HessianFree(jax.tree_util.tree_map(jnp.asarray, params),
+                            model_fn=_j_mlp, loss_outer=_j_mse)
+    t_batch = (torch.tensor(x), torch.tensor(y))
+    j_batch = (jnp.asarray(x), jnp.asarray(y))
+    t_sk = t_opt.get_nystrom_sketch(t_batch, rank=4)
+    j_sk = j_opt.get_nystrom_sketch(j_batch, rank=4)
+    t_arg = {"precond_diag": torch.ones(t_opt.ravel.dim, dtype=torch.float64),
+             "M": lambda v: v, "mvp": lambda v: v,
+             "grad_vec": torch.ones(t_opt.ravel.dim, dtype=torch.float64)}
+    j_arg = {"precond_diag": jnp.ones(j_opt.ravel.dim), "M": lambda v: v,
+             "mvp": lambda v: v, "grad_vec": jnp.ones(j_opt.ravel.dim)}
+    with pytest.raises(ValueError) as t_err:
+        t_opt.step(t_batch, precond_lowrank=t_sk,
+                   **{combined: t_arg[combined]})
+    with pytest.raises(ValueError) as j_err:
+        j_opt.step(j_batch, precond_lowrank=j_sk,
+                   **{combined: j_arg[combined]})
+    assert str(t_err.value) == str(j_err.value)
+    assert int(t_opt.state.step_count) == 0
