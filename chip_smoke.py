@@ -57,7 +57,24 @@ prints no ``ok`` line:
     unless its margin is below that); f) a bf16-stored and an f32-stored
     step from that state (the same CG iterations, reason and m-history bit
     for bit; peak memory of each); g) ``save`` / ``load`` into a fresh
-    optimizer with both backends, one step each, bitwise equal.
+    optimizer with both backends, one step each, bitwise equal;
+13. the user's front door, f32: a) a synthetic MNIST-shaped dataset
+    (``train_x.npy`` [2048, 28, 28, 1] in [0, 1], ``train_y.npy`` int64)
+    through ``PrefetchLoader.from_npy`` (the g++-built batcher) and
+    ``DevicePrefetcher`` on the card, every batch bitwise equal to the same
+    loader seed read without it, and the queue pop against a blocking copy;
+    b) ``examples_torch/run_resnet18_mnist.py --data`` on that dataset in a
+    subprocess (full-width ResNet-18, batch 32, 2 steps: the determinism
+    self-test all true, the first step's loss down, finite losses, exit 0,
+    launches equal to its CG iterations); c) All-CNN-C/CIFAR-100 as an
+    ``nn.Sequential`` with explicit "SAME" padding through ``module_fns``
+    (phase 8's seed-0 weights, HWIO -> OIHW; batch 128, the NHWC batch's
+    channels_last view as NCHW): loss, gradient and one GGN matvec within
+    rtol 1e-5 of ``allcnnc_apply`` (norm-wise), the matvec times, and 2 HF
+    steps on the adapter; d) ``format_solver_memory`` for ResNet-18 and
+    All-CNN-C, and the estimate's f32 - bf16 iterate-store difference
+    within 1 MiB of that of phase 12 f's measured peaks of requested bytes,
+    its totals at most the allocated step peaks.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
 trace of 5 matvecs.
@@ -65,10 +82,12 @@ trace of 5 matvecs.
 Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11 and times it at the n of each path beside
 its bound.  The ``kernels`` line counts the kernel's launches on the four
-paths (phases 6, 8, 10 and 11) and the steps of phase 12; the launches of
-the comparisons and of phase 12's standalone CG solves do not count.
+paths (phases 6, 8, 10 and 11), the steps of phase 12 and those of phase
+13 b (read from the example's output) and c; the launches of the
+comparisons and of phase 12's standalone CG solves do not count.
 
-It needs a CUDA device and ``nvcc`` (the CUDA toolkit), and imports no JAX.
+It needs a CUDA device, ``nvcc`` (the CUDA toolkit) and ``g++``, and
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -80,17 +99,30 @@ import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import pytorchhessianfree_tpu_torch as pkg
-from pytorchhessianfree_tpu_torch import _build, accumulate, models, optimizer
+from examples_torch.example_utils import allcnnc_sequential, load_hwio_convs
+from pytorchhessianfree_tpu_torch import (
+    _build,
+    accumulate,
+    models,
+    optimizer,
+    runtime,
+)
 from pytorchhessianfree_tpu_torch.ops import cg_update as ops
 from pytorchhessianfree_tpu_torch.ops.curvature import ggnvp, value_and_grad
 from pytorchhessianfree_tpu_torch.utils.flatten import tree_flatten, tree_map
+from pytorchhessianfree_tpu_torch.utils.memory import (
+    format_solver_memory,
+    solver_memory_bytes,
+)
 
 MAIN_N = 11_175_936  # ResNet-18/MNIST flat dimension, padded to 1024
 ALLCNNC_PARAMS = 1_387_108
@@ -439,7 +471,8 @@ def phase_allcnnc_narrow():
 
 def phase_allcnnc():
     """The accumulated path: 2 preconditioned ``acc_step``s of the
-    full-width All-CNN-C on CIFAR-100 shapes, batch 256 in 4 chunks."""
+    full-width All-CNN-C on CIFAR-100 shapes, batch 256 in 4 chunks.
+    Returns the kernel launches and the accumulated matvec's median ms."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_allcnnc(gen, device="cuda")
     count = sum(t.numel() for t in tree_flatten(params)[0])
@@ -531,11 +564,11 @@ def phase_allcnnc():
     mvp = accumulate.make_acc_mvp(opt.fns, opt.config, opt.params, mvp_data,
                                   "mean", opt.ravel)
     v = torch.randn(opt.ravel.dim, generator=gen, device="cuda")
-    times = cuda_ms(lambda: mvp(v), 10)
+    acc_ms = statistics.median(cuda_ms(lambda: mvp(v), 10))
     print(f"accumulated GGN matvec (2 chunks of 64, jvp + vjp per chunk): "
-          f"median {statistics.median(times):.2f} ms over 10 (CUDA events), "
-          f"{statistics.median(times) / 2:.2f} ms per chunk")
-    return launches
+          f"median {acc_ms:.2f} ms over 10 (CUDA events), "
+          f"{acc_ms / 2:.2f} ms per chunk")
+    return launches, acc_ms
 
 
 def affine_tokens(gen, batch, T, vocab, device):
@@ -789,18 +822,33 @@ def phase_moe_lm():
     return launches
 
 
+def requested_bytes(which):
+    """The caching allocator's ``current`` or ``peak`` sum of the sizes
+    tensors asked for (its allocated bytes count whole blocks instead)."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+
 def with_peak(fn):
-    """``(fn(), ms, peak)``: the host-clock time of ``fn`` and the peak
-    device memory it allocates above what was allocated before it."""
+    """``(fn(), ms, peak, requested)``: the host-clock time of ``fn``, the
+    peak device memory it allocates above what was allocated before it
+    (``max_memory_allocated``), and the peak of the bytes its tensors
+    request above the same start.  It starts from an empty allocator
+    cache: a tensor served from a cached block keeps up to 1 MiB of the
+    block beside it, so with a cache left by earlier work the same step's
+    allocated peak moved by 19 MB from run to run (the requested bytes do
+    not depend on the blocks)."""
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    base_requested = requested_bytes("current")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return out, ms, torch.cuda.max_memory_allocated() - base
+    return (out, ms, torch.cuda.max_memory_allocated() - base,
+            requested_bytes("peak") - base_requested)
 
 
 def walk_margin(bt_f):
@@ -836,7 +884,8 @@ def phase_resnet_features():
     """Phase 12: the Nystrom sketch, the spectrum, preconditioned and
     bf16-stored CG, rich stats, the batched selection and checkpoints on
     the main path (see the module docstring).  Returns the kernel launches
-    of its steps."""
+    of its steps and f)'s step peaks above the baseline, allocated and
+    requested, by store dtype."""
     torch.backends.cudnn.deterministic = True  # for the bitwise checks
     opt, batch, _ = resnet_main_path(rich_stats=True)
     ravel = opt.ravel
@@ -848,17 +897,18 @@ def phase_resnet_features():
     def sketch_gen():
         return torch.Generator("cuda").manual_seed(1)
 
-    sketch, ms, peak = with_peak(lambda: opt.get_nystrom_sketch(
+    sketch, ms, peak, _ = with_peak(lambda: opt.get_nystrom_sketch(
         batch, rank=32, generator=sketch_gen()))
     U, eigs = sketch
     orth = float((U.T @ U - torch.eye(32, device="cuda")).abs().max())
     # the build's share, then the sketch again from the built matvec
-    (_, grad, mvp), build_ms, _ = with_peak(
+    (_, grad, mvp), build_ms, _, _ = with_peak(
         lambda: optimizer._build_matvec_and_grad(
             opt.fns, opt.config, ravel, opt.params, batch))
     probes = pkg.normalized_probes(sketch_gen(), 32, n, ravel.dtype,
                                    pad_to=ravel.dim)
-    again, again_ms, _ = with_peak(lambda: pkg.nystrom_sketch(mvp, probes))
+    again, again_ms, _, _ = with_peak(
+        lambda: pkg.nystrom_sketch(mvp, probes))
     again_err = float(((again.eigs - eigs).abs() / eigs).max())
     u1 = U[:, 0]
     top = float(u1 @ mvp(u1))
@@ -880,7 +930,7 @@ def phase_resnet_features():
     def spec_gen():
         return torch.Generator("cuda").manual_seed(2)
 
-    (ritz_res, (nodes, weights)), ms, peak = with_peak(
+    (ritz_res, (nodes, weights)), ms, peak, _ = with_peak(
         lambda: opt.estimate_spectrum(batch, num_iters=32, num_probes=4,
                                       generator=spec_gen()))
     probes = pkg.normalized_probes(spec_gen(), 5, n, ravel.dtype,
@@ -986,13 +1036,15 @@ def phase_resnet_features():
     del runs, seq, bat, g_tree
 
     # f) bf16-stored against f32-stored iterates, one step each
-    stats, peaks = {}, {}
+    stats, peaks = {}, {"allocated": {}, "requested": {}}
     for store in (None, "bfloat16"):
         o = resnet_opt(start, rich_stats=True,
                        cg=pkg.CGConfig(store_dtype=store))
         o.load_state_dict(saved)
-        steps, _, peaks[store] = with_peak(functools.partial(
-            run_steps, o, batch, 1, f"the {store or 'float32'}-stored step"))
+        steps, _, peaks["allocated"][store], peaks["requested"][store] = \
+            with_peak(functools.partial(
+                run_steps, o, batch, 1,
+                f"the {store or 'float32'}-stored step"))
         launches += steps
         stats[store] = o.last_stats
         del o
@@ -1003,8 +1055,12 @@ def phase_resnet_features():
     print(f"f) bf16- vs f32-stored iterates: {a.num_cg_iters} CG iters "
           f"({pkg.cg_reason_str(a.cg_reason)}) and the m-history bit for bit "
           f"on both; best iter {a.best_cg_iter} vs {b.best_cg_iter}; peak "
-          f"of the step {gib(peaks[None]):.3f} vs "
-          f"{gib(peaks['bfloat16']):.3f} GiB above the baseline")
+          f"of the step above the baseline, allocated "
+          f"{gib(peaks['allocated'][None]):.3f} vs "
+          f"{gib(peaks['allocated']['bfloat16']):.3f} GiB "
+          f"({peaks['allocated'][None]} vs {peaks['allocated']['bfloat16']} "
+          f"bytes), requested {peaks['requested'][None]} vs "
+          f"{peaks['requested']['bfloat16']} bytes")
     del stats, a, b, start
 
     # g) save, load into a fresh optimizer, one step each
@@ -1027,6 +1083,222 @@ def phase_resnet_features():
                   f"for bit")
             del fresh
     torch.backends.cudnn.deterministic = False
+    return launches, peaks
+
+
+def phase_data_path(data_dir):
+    """13 a): a synthetic MNIST-shaped ``.npy`` dataset through the native
+    loader and the device prefetcher, every batch held bitwise against the
+    same loader seed read without the prefetcher; the pop against a
+    blocking copy of the same batch."""
+    rng = np.random.default_rng(0)
+    xp, yp = (os.path.join(data_dir, f) for f in ("train_x.npy",
+                                                  "train_y.npy"))
+    np.save(xp, rng.random((2048, 28, 28, 1), dtype=np.float32))
+    np.save(yp, rng.integers(0, 10, 2048).astype(np.int64))
+    t0 = time.perf_counter()
+    _build.build("batcher.cpp")
+    build_s = time.perf_counter() - t0
+
+    depth, count = 2, 16  # 8 passes through the queue
+    ref = runtime.PrefetchLoader.from_npy(xp, yp, 32, seed=0)
+    loader = runtime.PrefetchLoader.from_npy(xp, yp, 32, seed=0)
+    device = torch.device("cuda", torch.cuda.current_device())
+    with runtime.DevicePrefetcher(loader, depth=depth, n_batches=count,
+                                  close_source=True) as pf:
+        got = 0
+        for bx, by in pf:
+            rx, ry = ref.next_batch()
+            if not (bx.device == by.device == device
+                    and by.dtype == torch.int64
+                    and torch.equal(bx, torch.from_numpy(rx).to(device))
+                    and torch.equal(by, torch.from_numpy(ry).to(device))):
+                raise AssertionError(f"prefetched batch {got} differs")
+            got += 1
+    if got != count or loader._h is not None:
+        raise AssertionError(f"{got} batches of {count}; handle {loader._h}")
+
+    # the pop of a batch already on the card, and the blocking copy of it
+    pops, copies = [], []
+    with runtime.DevicePrefetcher(ref, depth=depth, n_batches=20) as pf:
+        for _ in range(20):
+            while pf._q.qsize() < depth and pf._thread.is_alive():
+                time.sleep(0.001)  # the batch is on the card before the pop
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bx, _ = next(pf)
+            torch.cuda.synchronize()
+            pops.append((time.perf_counter() - t0) * 1e3)
+            host = bx.cpu().numpy()
+            t0 = time.perf_counter()
+            torch.from_numpy(host).to(device)
+            torch.cuda.synchronize()
+            copies.append((time.perf_counter() - t0) * 1e3)
+    ref.close()
+    print(f"13 a) .npy [2048, 28, 28, 1] f32 + int64 labels -> PrefetchLoader "
+          f"(g++ build {build_s:.2f} s) -> DevicePrefetcher(depth {depth}, "
+          f"cuda): {count} batches of 32 bitwise equal to the loader read "
+          f"without it, labels int64, on {device}; median host ms over 20: "
+          f"queue pop {statistics.median(pops):.3f}, blocking .to('cuda') "
+          f"of the same batch {statistics.median(copies):.3f}")
+
+
+def phase_flagship_example(data_dir):
+    """13 b): ``examples_torch/run_resnet18_mnist.py --data`` at full width
+    in a subprocess; returns its kernel launches."""
+    script = Path(__file__).resolve().parent / "examples_torch" / \
+        "run_resnet18_mnist.py"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(script), "--data", data_dir],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    if proc.returncode != 0:
+        raise AssertionError(f"run_resnet18_mnist.py exited "
+                             f"{proc.returncode}:\n{out}\n{proc.stderr[-3000:]}")
+    det = out.split("determinism self-test: ")[1].splitlines()[0]
+    losses = [tuple(float(v) for v in line.split("loss ")[1].split(" |")[0]
+                    .split(" -> "))
+              for line in out.splitlines() if line.startswith("step ")]
+    launches = int(out.split("fused_cg_update launches: ")[1].split()[0])
+    iters = [int(i) for i in out.split("(CG iterations [")[1].split("]")[0]
+             .split(",")]
+    if not ("11,175,370" in out and "False" not in det and len(losses) == 2
+            and all(math.isfinite(v) for pair in losses for v in pair)
+            and losses[0][1] < losses[0][0] and launches == sum(iters)):
+        raise AssertionError(f"run_resnet18_mnist.py:\n{out}")
+    for line in out.splitlines():
+        print(f"    | {line}")
+    print(f"13 b) run_resnet18_mnist.py --data: exit 0 in {wall:.1f} s; "
+          f"determinism self-test {det}; losses {losses}; fused_cg_update "
+          f"launches {launches} = CG iterations {iters}")
+    return launches
+
+
+def module_tree(flat, ravel, names):
+    """A flat vector of the ``nn.Sequential`` All-CNN-C -> the functional
+    model's tree (OIHW -> HWIO)."""
+    d = ravel.unravel(flat)
+    return {"convs": [{"w": d[f"{n}.weight"].permute(2, 3, 1, 0),
+                       "b": d[f"{n}.bias"]} for n in names]}
+
+
+def rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_module_path(acc_matvec_ms):
+    """13 c): full-width All-CNN-C/CIFAR-100 as an ``nn.Sequential``
+    through ``module_fns`` against the functional model, then 2 HF steps
+    on the adapter; returns their kernel launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_allcnnc(gen, device="cuda")  # phase 8's weights
+    net = load_hwio_convs(allcnnc_sequential().cuda(), params)
+    names = [n for n, m in net.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    mparams, buffers = pkg.split_module_state(net)
+    count = sum(t.numel() for t in mparams.values())
+    if count != ALLCNNC_PARAMS or buffers:
+        raise AssertionError(f"nn.Sequential All-CNN-C: {count} parameters")
+    x = torch.randn((128, 32, 32, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 100, (128,), generator=gen, device="cuda")
+    # the same memory viewed as NCHW (channels_last), as allcnnc_apply
+    # views it, so that both models run the same cuDNN kernels: with a
+    # contiguous NCHW copy and the padding inside nn.Conv2d, the f32 sums
+    # over 128 x 32 x 32 positions in other orders put the gradient 2.2e-5
+    # away (norm-wise)
+    nchw = (x.permute(0, 3, 1, 2), y)
+    fns = pkg.module_fns(net, models.cross_entropy_loss)
+    config = dict(damping=1.0, cg_max_iter=50)
+    opt = pkg.HessianFree(mparams, model_fn=fns.model_fn,
+                          loss_outer=fns.loss_outer,
+                          config=pkg.HFConfig(**config), pad_to_multiple=1024)
+    ref = pkg.HessianFree(params, model_fn=models.allcnnc_apply,
+                          loss_outer=models.cross_entropy_loss,
+                          config=pkg.HFConfig(**config), pad_to_multiple=1024)
+    built = []
+    for o, batch in ((opt, nchw), (ref, (x, y))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built.append(optimizer._build_matvec_and_grad(
+            o.fns, o.config, o.ravel, o.params, batch))
+        torch.cuda.synchronize()
+        built[-1] += ((time.perf_counter() - t0) * 1e3,)
+    (m_loss, m_grad, m_mvp, m_build), (f_loss, f_grad, f_mvp, f_build) = built
+    v = torch.randn(opt.ravel.dim, generator=gen, device="cuda")
+    v_ref = ref.ravel.ravel(module_tree(v, opt.ravel, names))
+    errs = (abs(float(m_loss) / float(f_loss) - 1),
+            rel(ref.ravel.ravel(module_tree(m_grad, opt.ravel, names)),
+                f_grad),
+            rel(ref.ravel.ravel(module_tree(m_mvp(v), opt.ravel, names)),
+                f_mvp(v_ref)))
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"nn.Module All-CNN-C vs allcnnc_apply: loss, "
+                             f"gradient, matvec relative errors {errs}")
+    m_ms = statistics.median(cuda_ms(lambda: m_mvp(v), 20))
+    f_ms = statistics.median(cuda_ms(lambda: f_mvp(v_ref), 20))
+    print(f"13 c) All-CNN-C/CIFAR-100 as nn.Sequential (ZeroPad2d before "
+          f"each SAME conv; {count} parameters, phase 8's seed-0 weights) "
+          f"through module_fns, batch 128 NCHW (channels_last), against "
+          f"allcnnc_apply on the same batch NHWC: relative error loss "
+          f"{errs[0]:.2e}, gradient {errs[1]:.2e}, GGN matvec {errs[2]:.2e} "
+          f"(norm-wise, rtol 1e-5); build {m_build:.1f} vs {f_build:.1f} "
+          f"ms; GGN matvec median over 20 (CUDA events) {m_ms:.2f} ms "
+          f"(functional {f_ms:.2f} ms; phase 8's accumulated matvec over "
+          f"2 x 64 {acc_matvec_ms:.2f} ms)")
+    del built, m_mvp, f_mvp, ref
+    return run_steps(opt, nchw, 2, "phase 13's nn.Module steps")
+
+
+def phase_sizing(store_peaks):
+    """13 d): the solver-memory estimate for the ResNet-18 and All-CNN-C
+    configurations, and against phase 12 f's measured step peaks.
+
+    The f32 - bf16 difference is held against the requested bytes' peaks:
+    the allocated bytes count the allocator's blocks, and a block keeps a
+    remainder under 1 MiB beside its request instead of splitting it off,
+    so either run's allocated peak can sit up to that much above what its
+    tensors asked for."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ravels = {
+        "ResNet-18/MNIST": pkg.TrainableRavel(
+            models.init_resnet18(gen, device="cuda"), pad_to_multiple=1024),
+        "All-CNN-C/CIFAR-100": pkg.TrainableRavel(
+            models.init_allcnnc(gen, device="cuda"), pad_to_multiple=1024),
+    }
+    for name, ravel in ravels.items():
+        text = format_solver_memory(ravel, pkg.HFConfig(cg_max_iter=50))
+        print(f"13 d) solver memory, {name}, cg_max_iter=50: "
+              + "; ".join(text.splitlines()))
+    est = {store: solver_memory_bytes(ravels["ResNet-18/MNIST"], pkg.HFConfig(
+        damping=1.0, cg_max_iter=50, cg=pkg.CGConfig(store_dtype=store)))
+        for store in (None, "bfloat16")}
+    est_diff = est[None]["total"] - est["bfloat16"]["total"]
+    allocated, requested = store_peaks["allocated"], store_peaks["requested"]
+    req_diff = requested[None] - requested["bfloat16"]
+    alloc_diff = allocated[None] - allocated["bfloat16"]
+    if not (abs(est_diff - req_diff) <= 2**20
+            and all(est[s]["total"] <= allocated[s] for s in est)):
+        raise AssertionError(f"estimate {est} against peaks {store_peaks}")
+    print(f"13 d) ResNet-18 step (phase 12 f) f32 - bf16 iterate store: "
+          f"estimate {est_diff} bytes; measured requested {req_diff} bytes "
+          f"({abs(est_diff - req_diff)} apart, within 1 MiB), allocated "
+          f"{alloc_diff} bytes ({abs(est_diff - alloc_diff)} apart); estimate "
+          f"totals {gib(est[None]['total']):.3f} / "
+          f"{gib(est['bfloat16']['total']):.3f} GiB <= measured allocated "
+          f"step peaks {gib(allocated[None]):.3f} / "
+          f"{gib(allocated['bfloat16']):.3f} GiB above the baseline")
+
+
+def phase_front_door(acc_matvec_ms, store_peaks):
+    """Phase 13: the data path, the flagship example, the ``nn.Module``
+    path and the sizing (see the module docstring); returns the kernel
+    launches of b) and c)."""
+    with tempfile.TemporaryDirectory() as data_dir:
+        phase_data_path(data_dir)
+        launches = phase_flagship_example(data_dir)
+    launches += phase_module_path(acc_matvec_ms)
+    phase_sizing(store_peaks)
     return launches
 
 
@@ -1060,11 +1332,14 @@ def main():
     phase_small_slice()
     launches = phase_main()
     phase_allcnnc_narrow()
-    launches += phase_allcnnc()
+    steps, acc_matvec_ms = phase_allcnnc()
+    launches += steps
     phase_lm_narrow()
     launches += phase_decoder_lm()
     launches += phase_moe_lm()
-    launches += phase_resnet_features()
+    steps, store_peaks = phase_resnet_features()
+    launches += steps
+    launches += phase_front_door(acc_matvec_ms, store_peaks)
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",

@@ -4,7 +4,9 @@ Port of the JAX package :mod:`pytorchhessianfree_tpu` to PyTorch on an
 NVIDIA H100: the same module layout, public names and solver semantics
 (Martens' Hessian-free optimizer with GGN/Hessian matvecs, CG with Martens'
 stop, Levenberg-Marquardt damping, CG backtracking and an Armijo line
-search, Nystrom preconditioning, Lanczos/SLQ spectra and checkpoints).
+search, Nystrom preconditioning, Lanczos/SLQ spectra and checkpoints),
+with a ``torch.nn.Module`` adapter (:mod:`.interop`) and a native batch
+loader with a device prefetcher (:mod:`.runtime`).
 Plain tensor code is PyTorch; the CG vector phase is a CUDA kernel written
 for Hopper (:func:`~.ops.cg_update.fused_cg_update`).  This package never
 imports JAX.
@@ -81,6 +83,7 @@ from .models import (
     next_token_loss,
     transformer_apply,
 )
+from .interop import module_fns, module_state_update, split_module_state
 from .utils.flatten import TrainableRavel
 from . import checkpoint  # the checkpoint module, as in the JAX package
 
@@ -148,6 +151,9 @@ __all__ = [
     "moe_decoder_lm_apply",
     "next_token_loss",
     "transformer_apply",
+    "module_fns",
+    "module_state_update",
+    "split_module_state",
     "TrainableRavel",
     "checkpoint",
 ]

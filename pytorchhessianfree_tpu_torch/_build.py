@@ -1,13 +1,15 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper into a
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, from the sources in this package only, into ``build/``
-beside them; a library is named by the hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+Each source under ``csrc/`` is compiled into a shared library with a plain
+C interface, loaded with ``ctypes``: a ``.cu`` source (a CUDA kernel) by
+``nvcc`` for Hopper, a ``.cpp`` source (host code: the batch loader) by
+``g++``.  The build runs at first use, from the sources in this package
+only, into ``build/`` beside them; a library is named by the hash of its
+source and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.
 
 Nothing here runs at import time: importing the package needs neither
-``nvcc`` nor a card.
+``nvcc`` nor ``g++`` nor a card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 
 def _nvcc() -> str:
@@ -41,10 +44,29 @@ def _nvcc() -> str:
     )
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: building the batch loader needs it.")
+
+
+def _compiler(source: str):
+    """``(compiler, flags)`` for ``csrc/<source>``: nvcc for ``.cu``, g++
+    for ``.cpp``."""
+    suffix = Path(source).suffix
+    if suffix == ".cu":
+        return _nvcc, NVCC_FLAGS
+    if suffix == ".cpp":
+        return _gxx, GXX_FLAGS
+    raise ValueError(f"no compiler for {source}: expected .cu or .cpp")
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
+    flags = _compiler(source)[1]
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
@@ -53,19 +75,20 @@ def build(source: str) -> Path:
     out = library_path(source)
     if out.exists():
         return out
-    nvcc = _nvcc()
+    find, flags = _compiler(source)
+    compiler = find()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent builders never
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    cmd = [compiler, *flags, "-o", tmp, str(CSRC / source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {source}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                f"{Path(compiler).name} failed ({proc.returncode}) on "
+                f"{source}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
     finally:

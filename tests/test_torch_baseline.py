@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from benchmarks.torch_baseline import _storage_grid, _torch_cg
 from test_cross_framework import _np_cg
 

@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu.ops import cg as jcg  # noqa: E402
 from pytorchhessianfree_tpu_torch.ops import cg as tcg  # noqa: E402
 

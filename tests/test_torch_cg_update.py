@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu_torch.ops.cg_update import (  # noqa: E402
     fused_cg_update,
     fused_cg_update_reference,

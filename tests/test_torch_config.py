@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu import config as jcfg  # noqa: E402
 from pytorchhessianfree_tpu_torch import config as tcfg  # noqa: E402
 

@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu_torch.convert import (  # noqa: E402
     params_from_jax,
     state_from_jax,

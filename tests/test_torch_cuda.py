@@ -373,3 +373,84 @@ def test_checkpoint_on_card_continues_bitwise(cuda, backend, tmp_path):
                            opt.ravel.ravel(opt.params))
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+def test_prefetcher_on_card_is_bitwise_and_orders_the_stream(cuda):
+    """``DevicePrefetcher`` on the card over ``depth + 2`` batches (two
+    passes through its queue, pinned buffers per batch): every batch equals
+    the loader's bit for bit, labels stay int64, and the consumer's stream
+    waits on the copy's event -- with the copy held back behind a sleep on
+    the prefetcher's stream, the current stream is busy right after the
+    pop."""
+    import threading
+
+    from pytorchhessianfree_tpu_torch.runtime import (
+        DevicePrefetcher,
+        PrefetchLoader,
+    )
+
+    rng = np.random.default_rng(0)
+    x = rng.random((64, 28, 28, 1), dtype=np.float32)
+    y = rng.integers(0, 10, 64).astype(np.int64)
+    depth = 2
+    ref = PrefetchLoader(x, y, batch_size=8, seed=3)
+    expected = [ref.next_batch() for _ in range(depth + 2)]
+    ref.close()
+
+    gate = threading.Event()
+    loader = PrefetchLoader(x, y, batch_size=8, seed=3)
+
+    def gated():
+        gate.wait(30)
+        yield from loader
+
+    pf = DevicePrefetcher(gated(), depth=depth, n_batches=depth + 2)
+    with torch.cuda.stream(pf._stream):
+        torch.cuda._sleep(1_000_000_000)  # ~0.5 s on the copy's stream
+    gate.set()
+    torch.cuda.current_stream().synchronize()
+    bx, by = next(pf)
+    assert not torch.cuda.current_stream().query()
+    got = [(bx, by)] + list(pf)
+    pf.close()
+    loader.close()
+    assert len(got) == depth + 2
+    for (bx, by), (ex, ey) in zip(got, expected):
+        assert bx.device.type == "cuda" and by.dtype == torch.int64
+        assert torch.equal(bx.cpu(), torch.from_numpy(ex))
+        assert torch.equal(by.cpu(), torch.from_numpy(ey))
+
+
+def test_module_adapter_allcnnc_gradient_on_card_matches_cpu(cuda):
+    """The ``nn.Sequential`` All-CNN-C through ``module_fns``: loss and
+    gradient on the card against the CPU, f64."""
+    import sys
+    from pathlib import Path
+
+    from pytorchhessianfree_tpu_torch import module_fns, split_module_state
+    from pytorchhessianfree_tpu_torch.ops.curvature import value_and_grad
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from examples_torch.example_utils import (
+        allcnnc_sequential,
+        load_hwio_convs,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    net = load_hwio_convs(
+        allcnnc_sequential(width_scale=0.125).double(),
+        init_allcnnc(gen, width_scale=0.125, dtype=torch.float64))
+    params, _ = split_module_state(net)
+    x = torch.randn((8, 3, 32, 32), generator=gen, dtype=torch.float64)
+    y = torch.randint(0, 100, (8,), generator=gen)
+    fns = module_fns(net, cross_entropy_loss)
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        loss, grad = value_and_grad(
+            lambda q: fns.loss_outer(fns.model_fn(q, x.to(dev)), y.to(dev)), p)
+        out.append((loss.cpu(), TrainableRavel(p).ravel(grad).cpu()))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-12, atol=0)
+    err = torch.linalg.vector_norm(g_gpu - g_cpu)
+    assert err <= 1e-10 * torch.linalg.vector_norm(g_cpu)

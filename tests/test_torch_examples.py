@@ -1,0 +1,130 @@
+"""The port's examples (``examples_torch/``): the CPU-sized ones run end to
+end with ``--cpu --tiny``, each in its own process with its own timeout;
+every example imports with ``jax`` blocked; without ``--cpu`` an example
+needs the card and stops without one."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples_torch"
+TIMEOUT = 300  # seconds per example
+
+# example -> the line that says it succeeded
+CPU_RUNS = {
+    "run_mwe": "loss decreased; done.",
+    "run_rosenbrock": "converged.",
+    "run_small_nn": "state_dict:",
+    "run_small_nn_acc": "reduction self-test passed",
+    "run_prefetch_loader": "loss decreased on loader batches; done.",
+    "run_module_interop": "loss decreased; BatchNorm statistics tracked; done.",
+}
+
+
+@pytest.fixture(scope="module")
+def started():
+    """Every CPU example, started at once with one thread each, so that the
+    file waits for the slowest example and not for their sum."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, str(EXAMPLES / f"{name}.py"), "--cpu", "--tiny"],
+            cwd=EXAMPLES, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+        )
+        for name in CPU_RUNS
+    }
+    yield procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.mark.parametrize("name", sorted(CPU_RUNS))
+def test_cpu_example_runs(started, name):
+    proc = started[name]
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        pytest.fail(f"{name} did not finish within {TIMEOUT} s")
+    assert proc.returncode == 0, err[-3000:]
+    assert "on cpu" in out.splitlines()[0], out[:200]
+    assert CPU_RUNS[name] in out, out[-2000:]
+
+
+_IMPORT_ALL = """
+import importlib, runpy, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.path.insert(0, {examples!r})
+names = {names!r}
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "pytorchhessianfree_tpu"
+               or m.startswith("pytorchhessianfree_tpu.") for m in sys.modules)
+for script in ("run_allcnnc_cifar100", "run_moe_lm"):
+    flag = "--dp" if script.startswith("run_all") else "--ep"
+    sys.argv = [script, "--cpu", flag]
+    try:
+        runpy.run_path({examples!r} + "/" + script + ".py",
+                       run_name="__main__")
+    except NotImplementedError as e:
+        assert "item 20" in str(e), e
+    else:
+        raise AssertionError(script + " " + flag + " did not raise")
+print(len(names))
+"""
+
+
+def test_every_example_imports_without_jax():
+    """Every port example imports without JAX and without the JAX package
+    (their work runs under ``__main__``), and the parallel flags of the
+    JAX examples raise as not ported."""
+    names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
+    assert {"example_utils", "run_resnet18_mnist", "run_allcnnc_cifar100",
+            "run_pipeline", "run_transformer", "run_decoder_lm",
+            "run_moe_lm", "run_nystrom", "run_spectrum",
+            "run_train_loop"} | set(CPU_RUNS) <= set(names)
+    program = _IMPORT_ALL.format(examples=str(EXAMPLES), names=names)
+    proc = subprocess.run([sys.executable, "-c", program], cwd=ROOT,
+                          capture_output=True, text=True, timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) == len(names)
+
+
+def test_examples_need_the_card_without_cpu_flag():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(EXAMPLES / "run_mwe.py")],
+                          cwd=EXAMPLES, capture_output=True, text=True,
+                          timeout=TIMEOUT)
+    assert proc.returncode != 0
+    assert "--cpu" in proc.stderr and "loss" not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_flagship_example_runs_on_the_card():
+    """``run_resnet18_mnist.py --tiny`` on the card: the determinism
+    self-test all true and the kernel launched once per CG iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) for the kernel")
+    proc = subprocess.run(
+        [sys.executable, str(EXAMPLES / "run_resnet18_mnist.py"), "--tiny"],
+        cwd=EXAMPLES, capture_output=True, text=True, timeout=TIMEOUT,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "on cuda" in out and "False" not in out.split(
+        "determinism self-test:")[1].splitlines()[0]
+    launches = out.split("fused_cg_update launches: ")[1].split()[0]
+    iters = out.split("(CG iterations ")[1].split(")")[0]
+    assert int(launches) == sum(int(i) for i in iters.strip("[]").split(","))

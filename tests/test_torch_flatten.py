@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu.utils.flatten import (  # noqa: E402
     TrainableRavel as JRavel,
 )

@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROGRAM = """
@@ -28,6 +30,11 @@ import pytorchhessianfree_tpu_torch.ops.nystrom
 import pytorchhessianfree_tpu_torch.ops.spectrum
 import pytorchhessianfree_tpu_torch.ops.select
 import pytorchhessianfree_tpu_torch.checkpoint
+import pytorchhessianfree_tpu_torch.interop
+import pytorchhessianfree_tpu_torch.runtime
+import pytorchhessianfree_tpu_torch.runtime.loader
+import pytorchhessianfree_tpu_torch.runtime.prefetch
+import pytorchhessianfree_tpu_torch.utils.memory
 assert "pytorchhessianfree_tpu" not in sys.modules
 print(len(pkg.__all__))
 """
@@ -89,18 +96,27 @@ def test_checkpoint_names_after_every_import():
     assert float(twice(torch.ones(()))) == 2.0
 
 
-_NOT_PORTED = {"flax_fns", "flax_state_update", "haiku_fns",
-               "haiku_state_update", "split_flax_variables"}
+# the JAX package's flax/haiku adapters -> the port's nn.Module adapter
+_SUBSTITUTED = {
+    "split_flax_variables": "split_module_state",
+    "flax_fns": "module_fns",
+    "haiku_fns": "module_fns",
+    "flax_state_update": "module_state_update",
+    "haiku_state_update": "module_state_update",
+}
 
 
 def test_public_names_of_the_jax_package_are_exported():
     """Every name in the JAX package's ``__all__`` is in the port's, apart
-    from the flax/haiku adapters (ROADMAP.md, queue 1, item 19)."""
+    from the flax/haiku adapters, whose place the ``nn.Module`` adapter
+    takes (``interop.py``)."""
     import pytorchhessianfree_tpu as jhf
     import pytorchhessianfree_tpu_torch as thf
 
-    missing = set(jhf.__all__) - set(thf.__all__) - _NOT_PORTED
+    missing = set(jhf.__all__) - set(thf.__all__) - set(_SUBSTITUTED)
     assert not missing, sorted(missing)
-    assert _NOT_PORTED <= set(jhf.__all__)
+    assert set(_SUBSTITUTED) <= set(jhf.__all__)
+    assert set(_SUBSTITUTED.values()) <= set(thf.__all__)
+    assert not set(_SUBSTITUTED) & set(thf.__all__)
     for name in thf.__all__:
         assert hasattr(thf, name), name

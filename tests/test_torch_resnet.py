@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu import HFConfig as JConfig  # noqa: E402
 from pytorchhessianfree_tpu import HFModelFns as JFns  # noqa: E402
 from pytorchhessianfree_tpu import TrainableRavel as JRavel  # noqa: E402

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 import pytorchhessianfree_tpu as jhf  # noqa: E402
 import pytorchhessianfree_tpu_torch as thf  # noqa: E402
 from pytorchhessianfree_tpu import models as jm  # noqa: E402

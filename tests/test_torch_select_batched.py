@@ -9,6 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
 from pytorchhessianfree_tpu.ops import select as jsel  # noqa: E402
 from pytorchhessianfree_tpu_torch.ops import cg as tcg  # noqa: E402
 from pytorchhessianfree_tpu_torch.ops import select as tsel  # noqa: E402
