@@ -74,7 +74,33 @@ prints no ``ok`` line:
     steps on the adapter; d) ``format_solver_memory`` for ResNet-18 and
     All-CNN-C, and the estimate's f32 - bf16 iterate-store difference
     within 1 MiB of that of phase 12 f's measured peaks of requested bytes,
-    its totals at most the allocated step peaks.
+    its totals at most the allocated step peaks;
+14. data parallelism (``parallel/``), f32 with TF32 off and
+    ``cudnn.deterministic`` on: a) ``initialize_distributed`` with NCCL on
+    a 1-rank group and ``make_mesh()``, one ``make_dp_hf_step`` step of the
+    full-width ResNet-18/MNIST b32 from phase 6's seed-0 start, equal to
+    ``hf_step`` on the same batch bit for bit (parameters, state, CG
+    iterations, losses), and the NCCL ``all_reduce`` time of one
+    [11,175,936] f32 vector; b) two ranks sharing the card over gloo (this
+    script with ``--dp-rank``, in two subprocesses): the same ResNet-18 b32
+    as two shards of 16, the reduced loss, gradient and one GGN matvec
+    within relative norm 1e-5 of one process's accumulated values over the
+    same two shards (BatchNorm normalizes each shard by its own statistics,
+    the JAX package's ``shard_map`` semantics; its GSPMD step would use
+    the whole batch's, ROADMAP.md fault F2, so the distance to the whole
+    batch of 32 is printed with no bound), 2 DP
+    steps with finite, non-increasing losses and the two ranks' parameters
+    equal bit for bit after each (and their CG iterations equal), the step
+    time, and the gloo ``all_reduce`` time of the same vector on the card;
+    c) on the same two ranks, phase 8's All-CNN-C/CIFAR-100 (b256 as 4
+    chunks of 64, each chunk split 32/32, cross-entropy plus L2):
+    ``dp_diag_EF`` and the accumulated GGN matvec within 1e-5 of the
+    one-process ones, and one ``make_dp_hf_acc_step`` step preconditioned
+    with the EMA of the diagonal, finite and non-increasing, replicas equal
+    bit for bit; d) ``examples_torch/run_allcnnc_cifar100.py --dp
+    --backend gloo`` under ``torch.distributed.run --nproc-per-node 2`` on
+    the card, exit 0 with finite losses.  Each rank counts its kernel
+    launches, which must equal its CG iterations, and the parent adds them.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
 trace of 5 matvecs.
@@ -82,21 +108,26 @@ trace of 5 matvecs.
 Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11 and times it at the n of each path beside
 its bound.  The ``kernels`` line counts the kernel's launches on the four
-paths (phases 6, 8, 10 and 11), the steps of phase 12 and those of phase
-13 b (read from the example's output) and c; the launches of the
-comparisons and of phase 12's standalone CG solves do not count.
+paths (phases 6, 8, 10 and 11), the steps of phase 12, those of phase
+13 b (read from the example's output) and c, and those of phase 14's steps
+on every rank; the launches of the comparisons and of phase 12's
+standalone CG solves do not count.
 
 It needs a CUDA device, ``nvcc`` (the CUDA toolkit) and ``g++``, and
-imports no JAX.
+imports no JAX.  ``python3 chip_smoke.py --phase 14`` builds the kernel and
+runs phase 14 alone, and prints neither the ``kernels`` line nor the ``ok``
+line.
 """
 
 from __future__ import annotations
 
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -116,7 +147,13 @@ from pytorchhessianfree_tpu_torch import (
     optimizer,
     runtime,
 )
+from pytorchhessianfree_tpu_torch.config import precision_ctx
 from pytorchhessianfree_tpu_torch.ops import cg_update as ops
+from pytorchhessianfree_tpu_torch.parallel import (
+    data_parallel as dp,
+    distributed as pdist,
+    mesh as pmesh,
+)
 from pytorchhessianfree_tpu_torch.ops.curvature import ggnvp, value_and_grad
 from pytorchhessianfree_tpu_torch.utils.flatten import tree_flatten, tree_map
 from pytorchhessianfree_tpu_torch.utils.memory import (
@@ -1301,6 +1338,330 @@ def phase_front_door(acc_matvec_ms, store_peaks):
     phase_sizing(store_peaks)
     return launches
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def host_ms(fn, calls):
+    """Per-call host-clock times (ms) of ``fn``, each ended by a device
+    synchronization (gloo's collectives on CUDA tensors wait on the host,
+    which CUDA events would not see)."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_dp_nccl():
+    """14 a): NCCL on a 1-rank group; one DP step against ``hf_step``, bit
+    for bit; the NCCL all_reduce time.  Returns the DP step's launches."""
+    import torch.distributed as dist
+
+    pdist.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                 backend="nccl", device="cuda:0")
+    mesh = pmesh.make_mesh()
+    opt, batch, _ = resnet_main_path()
+    ravel = opt.ravel
+    ref = optimizer.hf_step(opt.params, opt.state, batch, fns=opt.fns,
+                            config=opt.config, ravel=ravel)
+    step = dp.make_dp_hf_step(opt.fns, opt.config, ravel, mesh)
+    ops.fused_cg_update.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(opt.params, opt.state, pmesh.shard_batch(batch, mesh))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.fused_cg_update.launches
+    (rp, rs, rst), (gp, gs, gst) = ref, got
+    same = (torch.equal(ravel.ravel(rp), ravel.ravel(gp))
+            and all(torch.equal(a, b) for a, b in zip(rs, gs))
+            and rst.num_cg_iters == gst.num_cg_iters
+            and torch.equal(rst.init_loss, gst.init_loss)
+            and torch.equal(rst.final_loss, gst.final_loss))
+    if not same:
+        raise AssertionError(
+            f"1-rank NCCL DP step differs from hf_step: cg "
+            f"{gst.num_cg_iters} vs {rst.num_cg_iters}, losses "
+            f"{float(gst.init_loss)} -> {float(gst.final_loss)} vs "
+            f"{float(rst.init_loss)} -> {float(rst.final_loss)}")
+    if launches != gst.num_cg_iters:
+        raise AssertionError(f"{launches} launches for {gst.num_cg_iters} "
+                             f"CG iterations")
+    v = torch.ones(MAIN_N, device="cuda")
+    times = cuda_ms(lambda: dist.all_reduce(v, group=mesh.get_group("data")),
+                    25)
+    print(f"14 a) NCCL, 1-rank group, make_mesh() {mesh}: make_dp_hf_step on "
+          f"ResNet-18/MNIST b32 from the seed-0 start equals hf_step bit for "
+          f"bit (parameters, state, {gst.num_cg_iters} CG iterations, losses "
+          f"{float(gst.init_loss):.6f} -> {float(gst.final_loss):.6f}); DP "
+          f"step {ms:.1f} ms; NCCL all_reduce of [{MAIN_N}] f32: median "
+          f"{statistics.median(times):.4f} ms over 25 (CUDA events); "
+          f"fused_cg_update launches {launches} = CG iterations")
+    dist.destroy_process_group()
+    pdist._device = None
+    return launches
+
+
+def dp_rank(rank, world, port, out_path):
+    """One rank of 14 b) and c) (``chip_smoke.py --dp-rank``): gloo on the
+    card; writes its record to ``out_path``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize_distributed(f"localhost:{port}", world, rank,
+                                 backend="gloo", device="cuda:0")
+    mesh = pmesh.make_mesh()
+    rec = {"rank": rank}
+
+    # b) ResNet-18/MNIST b32 as two shards of 16
+    opt, batch, _ = resnet_main_path()
+    ravel, fns, config = opt.ravel, opt.fns, opt.config
+    local = pmesh.shard_batch(batch, mesh)
+    v = torch.randn(ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    with precision_ctx(config):
+        loss, grad, mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, opt.params, local,
+            dp._Reduce(mesh, "data", "mean"))
+        mv = mvp(v)
+        if rank == 0:
+            # one process, the same two shards as chunks: BatchNorm
+            # normalizes each shard by its own statistics, on the ranks as
+            # in the accumulated step
+            x, y = batch
+            halves = [(x[:16], y[:16]), (x[16:], y[16:])]
+            r_loss = accumulate.acc_loss(fns, opt.params, halves, "mean")
+            r_grad = accumulate.acc_grad(fns, opt.params, halves, "mean",
+                                         ravel)
+            r_mv = accumulate.make_acc_mvp(fns, config, opt.params, halves,
+                                           "mean", ravel)(v)
+            rec["b_rel"] = [abs(float(loss) / float(r_loss) - 1),
+                            rel(grad, r_grad), rel(mv, r_mv)]
+            # and the whole batch of 32, whose statistics no rank sees
+            w_loss, w_grad = value_and_grad(
+                lambda p: fns.full_loss(p, batch), opt.params)
+            w_mv = ravel.ravel(ggnvp(
+                lambda p: fns.model_fn(p, x),
+                lambda o: fns.loss_outer(o, y), opt.params,
+                ravel.unravel(v)))
+            rec["b_whole"] = [abs(float(loss) / float(w_loss) - 1),
+                              rel(grad, ravel.ravel(w_grad)), rel(mv, w_mv)]
+            del r_grad, r_mv, w_grad, w_mv
+    del grad, mvp, mv
+    step = dp.make_dp_hf_step(fns, config, ravel, mesh)
+    params, state = opt.params, opt.state
+    ops.fused_cg_update.launches = 0
+    rec["b_steps"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, st = step(params, state, local)
+        torch.cuda.synchronize()
+        rec["b_steps"].append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "iters": st.num_cg_iters, "init": float(st.init_loss),
+            "final": float(st.final_loss), "params": digest(ravel.ravel(
+                params))})
+    rec["b_launches"] = ops.fused_cg_update.launches
+    u = torch.ones(MAIN_N, device="cuda")
+    rec["gloo_ms"] = statistics.median(host_ms(
+        lambda: dist.all_reduce(u, group=mesh.get_group("data")), 10))
+    del opt, params, state, local, batch, u
+
+    # c) phase 8's All-CNN-C/CIFAR-100, each chunk split 32/32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    aparams = models.init_allcnnc(gen, device="cuda")
+    x = torch.randn((256, 32, 32, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 100, (256,), generator=gen, device="cuda")
+    aopt = allcnnc_opt(aparams, damping=1.0, cg_max_iter=50)
+    ravel, fns, config = aopt.ravel, aopt.fns, aopt.config
+    chunks = (x.reshape(4, 64, 32, 32, 3), y.reshape(4, 64))
+    split = pmesh.Sharding(mesh, "data", dim=1)
+    local_chunks = tuple(split.take(t).contiguous() for t in chunks)
+    xl, yl = pmesh.shard_batch((x, y), mesh)
+    with precision_ctx(config):
+        diag = dp.dp_diag_EF(fns, aparams, xl, yl, "mean", ravel, mesh)
+        mvp = optimizer._acc_parts(
+            fns, config, ravel, aparams, local_chunks, local_chunks,
+            local_chunks, "mean", reduce=dp._Reduce(mesh, "data", "mean"))[2]
+        v = torch.randn(ravel.dim, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(4))
+        mv = mvp(v)
+        if rank == 0:
+            r_diag = pkg.diag_EF(fns.model_fn, fns.loss_outer, aparams, x, y,
+                                 "mean", ravel, loss_reg=fns.loss_reg)
+            r_mvp = accumulate.make_acc_mvp(fns, config, aparams, chunks,
+                                            "mean", ravel)
+            rec["c_rel"] = [rel(diag, r_diag), rel(mv, r_mvp(v))]
+            del r_diag, r_mvp
+    precond = pkg.EMADiag(0.9).update(diag)
+    ops.fused_cg_update.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, _, st = dp.make_dp_hf_acc_step(fns, config, ravel, mesh)(
+        aparams, aopt.state, local_chunks, precond_diag=precond)
+    torch.cuda.synchronize()
+    rec["c_step"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "iters": st.num_cg_iters, "init": float(st.init_loss),
+                     "final": float(st.final_loss),
+                     "params": digest(ravel.ravel(p))}
+    rec["c_launches"] = ops.fused_cg_update.launches
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"rank {rank}/{world}: ok")
+
+
+def check_losses(label, steps):
+    for s in steps:
+        if not (math.isfinite(s["init"]) and math.isfinite(s["final"])
+                and s["final"] <= s["init"]):
+            raise AssertionError(f"{label}: losses {steps}")
+
+
+def phase_dp_two_ranks():
+    """14 b) and c): two gloo ranks sharing the card; returns the launches
+    of both ranks' steps."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             "2", str(port), paths[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"rank {r}/2: ok" not in out:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                     f"{out[-4000:]}")
+        r0, r1 = (json.load(open(path)) for path in paths)
+    launches = 0
+    for rec in (r0, r1):
+        check_losses("14 b)", rec["b_steps"])
+        check_losses("14 c)", [rec["c_step"]])
+        iters_b = sum(s["iters"] for s in rec["b_steps"])
+        if (rec["b_launches"] != iters_b
+                or rec["c_launches"] != rec["c_step"]["iters"]):
+            raise AssertionError(f"rank {rec['rank']}: launches "
+                                 f"{rec['b_launches']}, {rec['c_launches']}")
+        launches += rec["b_launches"] + rec["c_launches"]
+    for key in ("iters", "params"):
+        if ([s[key] for s in r0["b_steps"]] != [s[key] for s in r1["b_steps"]]
+                or r0["c_step"][key] != r1["c_step"][key]):
+            raise AssertionError(f"the ranks' {key} differ: {r0} vs {r1}")
+    if not max(r0["b_rel"] + r0["c_rel"]) <= 1e-5:
+        raise AssertionError(f"reduced values: b {r0['b_rel']}, c "
+                             f"{r0['c_rel']}")
+    steps = r0["b_steps"]
+    print(f"14 b) two gloo ranks sharing the card (subprocesses, {wall:.1f} s "
+          f"with start-up), ResNet-18/MNIST b32 as 2 x 16: reduced loss, "
+          f"gradient, GGN matvec vs one process on the same two shards as "
+          f"chunks, relative {r0['b_rel'][0]:.2e}, {r0['b_rel'][1]:.2e}, "
+          f"{r0['b_rel'][2]:.2e} (norm-wise, <= 1e-5); vs one process on "
+          f"the whole batch of 32 {r0['b_whole'][0]:.2e}, "
+          f"{r0['b_whole'][1]:.2e}, {r0['b_whole'][2]:.2e} (no bound: "
+          f"BatchNorm's batch statistics couple the rows, and each rank "
+          f"normalizes its 16, shard_map's semantics: open fault F2); 2 DP "
+          f"steps: losses "
+          f"{[(round(s['init'], 6), round(s['final'], 6)) for s in steps]}, "
+          f"CG iterations {[s['iters'] for s in steps]} on both ranks, "
+          f"parameters bitwise equal on both after each step; step ms (two "
+          f"ranks sharing one card, not a scaling figure) "
+          f"{[round(s['ms'], 1) for s in steps]} (rank 0), "
+          f"{[round(s['ms'], 1) for s in r1['b_steps']]} (rank 1); gloo "
+          f"all_reduce of [{MAIN_N}] f32 on the card: median "
+          f"{r0['gloo_ms']:.2f} / {r1['gloo_ms']:.2f} ms over 10 (host "
+          f"clock, ranks 0 / 1)")
+    c = r0["c_step"]
+    print(f"14 c) same ranks, All-CNN-C/CIFAR-100 b256 as 4 chunks of 64, "
+          f"each split 32/32, CE + L2: dp_diag_EF vs diag_EF on the whole "
+          f"batch {r0['c_rel'][0]:.2e}, accumulated GGN matvec vs one "
+          f"process {r0['c_rel'][1]:.2e} (norm-wise, <= 1e-5); one "
+          f"make_dp_hf_acc_step step with the EMA diagonal: loss "
+          f"{c['init']:.6f} -> {c['final']:.6f}, {c['iters']} CG iterations, "
+          f"{c['ms']:.1f} ms (rank 0), parameters bitwise equal on both "
+          f"ranks; fused_cg_update launches: rank 0 "
+          f"{r0['b_launches']} + {r0['c_launches']}, rank 1 "
+          f"{r1['b_launches']} + {r1['c_launches']} = their CG iterations")
+    return launches
+
+
+def phase_dp_example():
+    """14 d): the --dp example under torch.distributed.run, two gloo ranks
+    on the card; returns both ranks' launches."""
+    examples = Path(__file__).resolve().parent / "examples_torch"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "run_allcnnc_cifar100.py", "--dp",
+         "--backend", "gloo"],
+        cwd=examples, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    if proc.returncode != 0:
+        raise AssertionError(f"the --dp example exited {proc.returncode}:\n"
+                             f"{out}\n{proc.stderr[-4000:]}")
+    losses = [tuple(float(v) for v in line.split("loss ")[1].split(" |")[0]
+                    .split(" -> "))
+              for line in out.splitlines() if line.startswith("step ")]
+    launches = 0
+    for r in range(2):
+        line = out.split(f"rank {r}: fused_cg_update launches: ")[1]
+        n = int(line.split()[0])
+        iters = [int(i) for i in line.split("(CG iterations [")[1]
+                 .split("]")[0].split(",")]
+        if n != sum(iters):
+            raise AssertionError(f"rank {r}: {n} launches for {iters}")
+        launches += n
+    if not ("2 data-parallel ranks" in out and len(losses) == 2
+            and all(math.isfinite(v) for pair in losses for v in pair)):
+        raise AssertionError(f"the --dp example:\n{out}")
+    for line in out.splitlines():
+        print(f"    | {line}")
+    print(f"14 d) run_allcnnc_cifar100.py --dp --backend gloo under "
+          f"torch.distributed.run --nproc-per-node 2 on the card: exit 0 in "
+          f"{wall:.1f} s; losses {losses}; launches {launches} = both ranks' "
+          f"CG iterations")
+    return launches
+
+
+def phase_data_parallel():
+    """Phase 14 (module docstring); returns the kernel launches."""
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    launches = phase_dp_nccl()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches += phase_dp_two_ranks()
+    launches += phase_dp_example()
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1326,6 +1687,9 @@ def main():
     _build.build("fused_cg_update.cu")
     _build.load("fused_cg_update.cu")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--phase", "14"]:
+        phase_data_parallel()
+        return
 
     record = phase_kernel()
     phase_cg()
@@ -1340,6 +1704,7 @@ def main():
     steps, store_peaks = phase_resnet_features()
     launches += steps
     launches += phase_front_door(acc_matvec_ms, store_peaks)
+    launches += phase_data_parallel()
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",
@@ -1360,4 +1725,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                sys.argv[5])
+    else:
+        main()

@@ -36,6 +36,16 @@ def get_device() -> torch.device:
     return torch.device("cuda")
 
 
+def flag_value(name, default=None):
+    """The argument after ``name`` on the command line, or ``default``."""
+    if name not in sys.argv:
+        return default
+    i = sys.argv.index(name)
+    if i + 1 >= len(sys.argv):
+        raise SystemExit(f"{name} needs a value")
+    return sys.argv[i + 1]
+
+
 def is_tiny() -> bool:
     return "--tiny" in sys.argv
 
@@ -108,11 +118,12 @@ def parse_data_dir():
     return d
 
 
-def real_batch_stream(data_dir, batch_size, device, seed=0):
+def real_batch_stream(data_dir, batch_size, device, seed=0, sharding=None):
     """Real-dataset pipeline: mmap-backed ``.npy`` -> C++
     ``PrefetchLoader`` (threaded shuffled gathers) -> ``DevicePrefetcher``
     (pinned host copy, asynchronous transfer on a side stream, overlapped
-    with the step).
+    with the step).  With a ``sharding`` (data parallelism), every rank
+    reads the same global batches and keeps its own rows before the copy.
 
     Returns the ``DevicePrefetcher`` (an iterator of ``(x, y)`` batches on
     ``device``; also a context manager -- close it when done).
@@ -130,7 +141,8 @@ def real_batch_stream(data_dir, batch_size, device, seed=0):
     )
     # close_source: closing the prefetcher also shuts the native loader's
     # threads and mmap handles down (the stream owns the whole pipeline)
-    return DevicePrefetcher(loader, device=device, close_source=True)
+    return DevicePrefetcher(loader, device=device, close_source=True,
+                            sharding=sharding)
 
 
 def allcnnc_sequential(num_classes=100, in_channels=3, width_scale=1.0):

@@ -49,6 +49,17 @@ def conv(
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
 
 
+def max_pool(
+    x: torch.Tensor, window: int = 3, stride: int = 2
+) -> torch.Tensor:
+    """Max pooling over the spatial dims of an NCHW tensor with one row and
+    column of ``-inf`` padding on each side, as the JAX package's
+    ``reduce_window`` (which pools NHWC) pads them.  Ties in a window carry
+    zero tangents after the stem's ReLU, so the pick among them cannot
+    change a derivative."""
+    return F.max_pool2d(x, window, stride, padding=1)
+
+
 def _conv_init(generator, kh, kw, cin, cout, device, dtype):
     """He-normal HWIO kernel, drawn on the generator's device."""
     t = torch.randn((kh, kw, cin, cout), generator=generator,
@@ -84,9 +95,7 @@ def resnet18_apply(params: Any, x: torch.Tensor) -> torch.Tensor:
     out = torch.relu(
         batchnorm(out, params["stem_bn"]["scale"], params["stem_bn"]["bias"])
     )
-    # ties in a window after the ReLU carry zero tangents, so the pick
-    # among them cannot change a derivative
-    out = F.max_pool2d(out, 3, 2, padding=1)
+    out = max_pool(out)
     for blocks, (_, stride) in zip(params["stages"], _STAGES):
         out = _block_apply(blocks[0], out, stride)
         out = _block_apply(blocks[1], out, 1)

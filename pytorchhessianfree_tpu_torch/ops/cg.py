@@ -19,7 +19,10 @@ The loop is a Python loop.  Each iteration makes one curvature matvec, one
 residual, ``m`` and ``r.r`` in one pass).  ``alpha`` stays a device tensor;
 the termination test reads one integer back to the host per iteration, as
 the reference does.  Torch indexes in int64, so the JAX package's
-flat/chunked buffer layout and its int32 guard are not needed.
+flat/chunked buffer layout and its int32 guard are not needed: ``cg`` takes
+``buffer_layout`` and ``store_mode`` as the documented no-ops that
+:class:`~..config.CGConfig` describes, and ``CGResult.x_buf_flat`` is a
+flat view of the same rows.
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ class CGResult(NamedTuple):
     stored_iters: Tuple[int, ...]  # iteration number per buffer row
     m_hist: torch.Tensor  # [max_iter + 1] m(x_i); valid 0..num_iters
     nonpos_pAp: torch.Tensor  # bool, non-positive curvature detected
+    # [G * n] view of x_buf's rows (buffer_layout="flat"), None for "rows";
+    # no copy: the JAX package's chunked layout guards int32 row offsets,
+    # which torch's int64 indexing does not need
+    x_buf_flat: Optional[torch.Tensor] = None
 
     def row(self, jc: int) -> torch.Tensor:
         """Stored iterate of buffer row ``jc``, in the iterate's dtype."""
@@ -112,6 +119,8 @@ def cg(
     martens_min_window: int = 10,
     nonpos_curv_option: str = "ignore",
     store_dtype: Optional[str] = None,
+    buffer_layout: str = "flat",
+    store_mode: str = "cond",
 ) -> CGResult:
     """Preconditioned CG for ``A x = b`` with Hessian-free modifications.
 
@@ -129,9 +138,17 @@ def cg(
         store_dtype: dtype name (e.g. ``"bfloat16"``) of the stored
             iterates; ``None`` stores them in ``b``'s dtype.  Only the
             buffer is rounded: the iteration itself is the same.
+        buffer_layout, store_mode: layout knobs of the JAX package's XLA
+            buffer, validated and otherwise ignored (the iteration and the
+            stored rows are the same for every value); ``"rows"`` leaves
+            ``x_buf_flat`` ``None``, as in the JAX package.
     """
     if nonpos_curv_option not in ("ignore", "saddle-free"):
         raise ValueError(f"Unknown option {nonpos_curv_option}.")
+    if buffer_layout not in ("flat", "rows"):
+        raise ValueError(f"Unknown buffer_layout {buffer_layout}")
+    if store_mode not in ("scratch", "cond"):
+        raise ValueError(f"Unknown store_mode {store_mode}")
 
     n = b.shape[0]
     dtype, device = b.dtype, b.device
@@ -221,12 +238,14 @@ def cg(
         ry = ry_new
         it += 1
 
+    x_buf = x_buf[:G]
     return CGResult(
         x=x,
         num_iters=it,
         reason=reason,
-        x_buf=x_buf[:G],
+        x_buf=x_buf,
         stored_iters=stored_iters,
         m_hist=m_hist,
         nonpos_pAp=nonpos,
+        x_buf_flat=x_buf.reshape(-1) if buffer_layout == "flat" else None,
     )

@@ -12,6 +12,11 @@ makes the sequential choice, and the line search takes the largest
 accepted alpha.  The JAX package's ``fused_trials`` has no counterpart:
 eager PyTorch gains nothing from one traced forward, and the standalone
 routines evaluate the same points.
+
+A target may carry a ``sweep`` attribute, ``f.sweep(steps [k, n]) -> [k]``,
+which the batched modes call in place of ``vmap(f)``: the data-parallel
+steps (:mod:`~..parallel.data_parallel`) sum the ranks' trial losses there,
+after the ``vmap``, since no collective can run inside one.
 """
 
 from __future__ import annotations
@@ -54,6 +59,13 @@ def _candidates(cgres: CGResult):
     return stacked, valid
 
 
+def _sweep(f, steps: torch.Tensor) -> torch.Tensor:
+    """``f`` at every row of ``steps``: ``f.sweep(steps)`` if the target
+    has one (module docstring), else one ``vmap`` of ``f``."""
+    sweep = getattr(f, "sweep", None)
+    return torch.func.vmap(f)(steps) if sweep is None else sweep(steps)
+
+
 def _best_iter(cgres: CGResult, best: int) -> int:
     G = len(cgres.stored_iters)
     return cgres.num_iters if best == G else cgres.stored_iters[best]
@@ -83,7 +95,7 @@ def cg_efficient_backtracking(
 
     if mode == "batched":
         stacked, valid = _candidates(cgres)
-        f_all = torch.func.vmap(f)(stacked)
+        f_all = _sweep(f, stacked)
         f_host = f_all.tolist()  # the one host read of the sweep
         best, f_min = G, math.inf
         for j in range(G, -1, -1):
@@ -131,7 +143,7 @@ def cg_backtracking(
     """Exhaustive variant: the global argmin over the valid candidates
     (reference cg_backtracking.py:6-50), evaluated in one vmapped sweep."""
     stacked, valid = _candidates(cgres)
-    f_all = torch.func.vmap(f)(stacked)
+    f_all = _sweep(f, stacked)
     mask = torch.tensor(valid, device=stacked.device)
     masked = torch.where(mask, f_all, f_all.new_tensor(math.inf))
     best = int(torch.argmin(masked))
@@ -185,7 +197,7 @@ def simple_linesearch(
         alphas = init_alpha * (beta**exponents)
 
         def sweep(a):
-            return torch.func.vmap(lambda ai: f(ai * step))(a)
+            return _sweep(f, a[:, None] * step)
 
         if batch_chunk is None or batch_chunk >= max_iter:
             f_trace = sweep(alphas)

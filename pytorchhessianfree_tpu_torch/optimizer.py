@@ -325,11 +325,17 @@ def _curvature_dtype(config: HFConfig) -> Optional[torch.dtype]:
 
 
 def _build_matvec_and_grad(
-    fns: HFModelFns, config: HFConfig, ravel: TrainableRavel, params, batch
+    fns: HFModelFns, config: HFConfig, ravel: TrainableRavel, params, batch,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Loss, flat gradient and flat (undamped) curvature matvec for one
     batch.  The GGN path linearizes the model once per batch; the Hessian
     path linearizes ``(grad, value)`` of the loss once per batch.
+
+    ``reduce`` (the data-parallel steps' ``all_reduce``; see
+    :func:`_reduce_then_regularize`) combines the data term's loss,
+    gradient and each matvec product across ranks, outside every
+    transform, before the regularizer is added.
 
     ``config.curvature_dtype`` (e.g. ``"bfloat16"``): the matvec runs
     through a cast of the parameters and of the floating leaves of the
@@ -346,6 +352,12 @@ def _build_matvec_and_grad(
     linearization that would store every activation.  The numbers are the
     same."""
     fns = _maybe_remat(fns, config)
+    reg = fns.loss_reg
+    if reduce is not None or config.curvature_opt == "ggn":
+        # added after the data term (and its reduction), once
+        fns = fns._replace(loss_reg=None)
+    else:
+        reg = None  # the Hessian of ``full_loss`` holds it
     cdtype = _curvature_dtype(config)
     derived = cdtype is not None or config.remat
 
@@ -387,12 +399,6 @@ def _build_matvec_and_grad(
                     return ggnvp(lp_model_at, outer, lp_params, v)
             else:
                 mvp_tree = ggn_matvec_fn(lp_model_at, outer, lp_params)[2]
-        grad_vec = ravel.ravel(grad_tree)
-        if fns.loss_reg is not None:
-            # the regularizer enters loss and gradient, not the GGN
-            reg_val, reg_grad = value_and_grad(fns.loss_reg, params)
-            loss = loss + reg_val
-            grad_vec = grad_vec + ravel.ravel(reg_grad)
     else:
         if not derived:
             loss, grad_tree, mvp_tree = hvp_fn(
@@ -412,12 +418,43 @@ def _build_matvec_and_grad(
                     return hvp(lp_loss_of, lp_params, v)
             else:
                 mvp_tree = hvp_fn(lp_loss_of, lp_params)[2]
-        grad_vec = ravel.ravel(grad_tree)
 
     def mvp_vec(v):
         return ravel.ravel(mvp_tree(cast(ravel.unravel(v))))
 
-    return loss, grad_vec, mvp_vec
+    return _reduce_then_regularize(
+        config, ravel, params, loss, ravel.ravel(grad_tree), mvp_vec, reg,
+        reduce,
+    )
+
+
+def _reduce_then_regularize(config, ravel, params, loss, grad_vec, mvp_vec,
+                            reg, reduce):
+    """The data term's loss, flat gradient and matvec, each combined across
+    ranks by ``reduce`` when it is given, plus the regularizer ``reg`` when
+    it is given.  ``reg`` depends only on the parameters, alike on every
+    rank, so it is added after the reduction and counts once: in the loss
+    and the gradient, and in the matvec for the Hessian (the GGN, defined
+    through the model outputs, holds none of it)."""
+    if reduce is not None:
+        loss, grad_vec = reduce(loss), reduce(grad_vec)
+    if reg is None and reduce is None:
+        return loss, grad_vec, mvp_vec
+    reg_mvp = None
+    if reg is not None:
+        reg_val, reg_grad = value_and_grad(reg, params)
+        loss = loss + reg_val
+        grad_vec = grad_vec + ravel.ravel(reg_grad)
+        if config.curvature_opt == "hessian":
+            reg_mvp = hvp_fn(reg, params)[2]
+
+    def full_mvp(v):
+        out = mvp_vec(v) if reduce is None else reduce(mvp_vec(v))
+        if reg_mvp is not None:
+            out = out + ravel.ravel(reg_mvp(ravel.unravel(v)))
+        return out
+
+    return loss, grad_vec, full_mvp
 
 
 def hf_step(
@@ -449,9 +486,25 @@ def hf_step(
     matvec.  ``config.matmul_precision`` sets the TF32 switches for the
     whole step.
     """
+    return _hf_step(
+        params, state, batch, fns=fns, config=config, ravel=ravel,
+        precond_diag=precond_diag, precond_exponent=precond_exponent,
+        precond_lowrank=precond_lowrank, M=M, grad_vec=grad_vec,
+        mvp_vec=mvp_vec,
+    )
+
+
+def _hf_step(
+    params, state, batch, *, fns, config, ravel, precond_diag=None,
+    precond_exponent=0.75, precond_lowrank=None, M=None, grad_vec=None,
+    mvp_vec=None, reduce=None,
+):
+    """:func:`hf_step`; with ``reduce``, each rank's data term of the loss,
+    the gradient, the matvec, the trial losses and an in-step diagonal is
+    combined across the ranks (:mod:`.parallel.data_parallel`)."""
     with precision_ctx(config):
         loss, derived_grad, derived_mvp = _build_matvec_and_grad(
-            fns, config, ravel, params, batch
+            fns, config, ravel, params, batch, reduce
         )
 
         if M is None and precond_diag is not None:
@@ -467,17 +520,13 @@ def hf_step(
                     "(per-sample gradients need model_fn + loss_outer)."
                 )
             inputs, targets = batch
-            diag = diag_EF(
-                fns.model_fn, fns.loss_outer, params, inputs, targets,
-                config.precond_reduction, ravel, loss_reg=fns.loss_reg,
-            )
+            diag = _diag(fns, params, inputs, targets,
+                         config.precond_reduction, ravel, reduce)
             M = diag_to_preconditioner(
                 diag, state.damping, config.precond_exponent
             )
 
-        def loss_at(delta):
-            return fns.full_loss(ravel.add(params, delta), batch)
-
+        data_fns, reg = _split_reg(fns, reduce)
         return _step_core(
             config,
             ravel,
@@ -486,9 +535,72 @@ def hf_step(
             init_loss=loss,
             grad_vec=derived_grad if grad_vec is None else grad_vec,
             mvp_vec=derived_mvp if mvp_vec is None else mvp_vec,
-            loss_at=loss_at,
+            loss_at=_loss_at(lambda p: data_fns.full_loss(p, batch), reg,
+                             ravel, params, reduce),
             M=M,
         )
+
+
+def _split_reg(fns: HFModelFns, reduce):
+    """``(fns, None)``, or with ``reduce``, ``fns`` without its regularizer
+    and the regularizer apart, to add after the reduction."""
+    if reduce is None:
+        return fns, None
+    return fns._replace(loss_reg=None), fns.loss_reg
+
+
+def _loss_at(data_at, reg, ravel: TrainableRavel, params, reduce=None):
+    """``loss_at(delta)``: ``data_at(params + delta)``, combined across
+    ranks by ``reduce`` when it is given, plus ``reg`` at the same point
+    when it is given.  With ``reduce`` it carries the ``sweep`` of
+    :mod:`.ops.select`, which reduces the vector of trial losses after the
+    ``vmap`` (no collective runs inside one)."""
+
+    def loss_at(delta):
+        p = ravel.add(params, delta)
+        loss = data_at(p) if reduce is None else reduce(data_at(p))
+        return loss if reg is None else loss + reg(p)
+
+    if reduce is not None:
+        def sweep(deltas):
+            losses = reduce(torch.func.vmap(
+                lambda d: data_at(ravel.add(params, d)))(deltas))
+            if reg is not None:
+                losses = losses + torch.func.vmap(
+                    lambda d: reg(ravel.add(params, d)))(deltas)
+            return losses
+
+        loss_at.sweep = sweep
+    return loss_at
+
+
+def _diag(fns, params, inputs, targets, reduction, ravel, reduce=None,
+          diag=diag_EF):
+    """The empirical-Fisher diagonal through ``diag`` (``diag_EF`` or
+    ``diag_EF_scan``).  With ``reduce``, of every rank's rows (equal
+    shares): each rank sums its rows' squares, ``reduce.sum`` adds the
+    partial sums, and ``"mean"`` divides by the global row count."""
+    if reduce is None:
+        return diag(fns.model_fn, fns.loss_outer, params, inputs, targets,
+                    reduction, ravel, loss_reg=fns.loss_reg)
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"reduction {reduction} is not supported.")
+    d = reduce.sum(diag(fns.model_fn, fns.loss_outer, params, inputs,
+                        targets, "sum", ravel, loss_reg=fns.loss_reg))
+    if reduction == "mean":
+        d = d / (tree_flatten(inputs)[0][0].shape[0] * reduce.size)
+    return d
+
+
+def precond_arg(precond_diag, ravel: TrainableRavel):
+    """An optional preconditioner diagonal in the step builders' calling
+    convention: ``(diag, True)``, or ``(zeros(1), False)`` for ``None``.
+    The JAX package needs the flag because ``jit`` cannot take an optional
+    array operand; the port keeps the convention so that the data-parallel
+    steps read the same way."""
+    if precond_diag is None:
+        return torch.zeros(1, dtype=ravel.dtype, device=ravel.device), False
+    return precond_diag, True
 
 
 def make_hf_step(
@@ -496,10 +608,13 @@ def make_hf_step(
     config: HFConfig,
     ravel: TrainableRavel,
     precond_exponent: float = 0.75,
+    donate: bool = False,
 ):
     """``step(params, state, batch, precond_diag=None, precond_lowrank=None)
     -> (params, state, stats)``: the counterpart of the JAX package's jitted
-    step (PyTorch runs it eagerly)."""
+    step (PyTorch runs it eagerly).  ``donate`` is accepted and ignored:
+    the eager step already returns new tensors and leaves its inputs to
+    the caller, so there is no buffer to donate."""
 
     def step(params, state, batch, precond_diag=None, precond_lowrank=None):
         if precond_diag is not None and precond_lowrank is not None:
@@ -539,6 +654,7 @@ def make_hf_train_loop(
     config: HFConfig,
     ravel: TrainableRavel,
     precond_exponent: float = 0.75,
+    donate: bool = False,
     precond_ema_decay: Optional[float] = None,
 ):
     """Steps over a stacked batch: ``loop(params, state, batches)`` runs one
@@ -554,8 +670,17 @@ def make_hf_train_loop(
     (params, state, stats, ema)``, so it carries across calls; ``None``
     starts a fresh ``EMADiag(precond_ema_decay)``.  An EMA is seeded by its
     first diagonal, not by ``step_count``, so a loop resumed from a
-    checkpoint seeds a fresh EMA with its first diagonal.
+    checkpoint seeds a fresh EMA with its first diagonal.  ``donate`` is
+    accepted and ignored, as in :func:`make_hf_step`.
     """
+    return _train_loop(fns, config, ravel, precond_exponent,
+                       precond_ema_decay)
+
+
+def _train_loop(fns, config, ravel, precond_exponent, precond_ema_decay,
+                reduce=None):
+    """:func:`make_hf_train_loop`; with ``reduce``, every step and every
+    EMA diagonal combined across the ranks, as in :func:`_hf_step`."""
     if precond_ema_decay is not None:
         if not 0.0 <= precond_ema_decay < 1.0:
             raise ValueError(f"Invalid decay {precond_ema_decay}")
@@ -577,15 +702,13 @@ def make_hf_train_loop(
             if use_ema:
                 inputs, targets = batch
                 with precision_ctx(config):
-                    d = diag_EF(
-                        fns.model_fn, fns.loss_outer, params, inputs,
-                        targets, config.precond_reduction, ravel,
-                        loss_reg=fns.loss_reg,
-                    )
+                    d = _diag(fns, params, inputs, targets,
+                              config.precond_reduction, ravel, reduce)
                 precond_diag = ema.update(d)
-            params, state, stats = hf_step(
+            params, state, stats = _hf_step(
                 params, state, batch, fns=fns, config=config, ravel=ravel,
                 precond_diag=precond_diag, precond_exponent=precond_exponent,
+                reduce=reduce,
             )
             per_step.append(stats)
         stats = _stack_stats(per_step)
@@ -625,6 +748,21 @@ def hf_acc_step(
     is ignored here, as in the JAX package: the accumulated matvec runs in
     the parameter dtype.
     """
+    return _hf_acc_step(
+        params, state, fns=fns, config=config, ravel=ravel,
+        loss_data=loss_data, grad_data=grad_data, mvp_data=mvp_data,
+        reduction=reduction, M=M, precond_diag=precond_diag,
+        precond_exponent=precond_exponent, mvp_amortize=mvp_amortize,
+    )
+
+
+def _hf_acc_step(params, state, *, fns, config, ravel, loss_data,
+                 grad_data=None, mvp_data=None, reduction="mean", M=None,
+                 precond_diag=None, precond_exponent=0.75,
+                 mvp_amortize=False, reduce=None):
+    """:func:`hf_acc_step`; with ``reduce``, each rank accumulates its
+    chunks, and one reduction follows each chunk sum (loss, gradient,
+    every matvec, the trial losses), as in :func:`_hf_step`."""
     if config.precond == "diag_ef":
         raise ValueError(
             "precond='diag_ef' (in-step diagonal from the step's own batch) "
@@ -636,22 +774,14 @@ def hf_acc_step(
     if mvp_data is None:
         mvp_data = loss_data
 
-    fns = _maybe_remat(fns, config)
     with precision_ctx(config):
-        init_loss = acc.acc_loss(fns, params, loss_data, reduction)
-        grad_vec = acc.acc_grad(fns, params, grad_data, reduction, ravel)
-        mvp_vec = acc.make_acc_mvp(
-            fns, config, params, mvp_data, reduction, ravel,
-            amortize=mvp_amortize,
+        init_loss, grad_vec, mvp_vec, loss_at = _acc_parts(
+            fns, config, ravel, params, loss_data, grad_data, mvp_data,
+            reduction, mvp_amortize, reduce,
         )
         if M is None and precond_diag is not None:
             M = diag_to_preconditioner(
                 precond_diag, state.damping, precond_exponent
-            )
-
-        def loss_at(delta):
-            return acc.acc_loss(
-                fns, ravel.add(params, delta), loss_data, reduction
             )
 
         return _step_core(
@@ -665,6 +795,24 @@ def hf_acc_step(
             loss_at=loss_at,
             M=M,
         )
+
+
+def _acc_parts(fns, config, ravel, params, loss_data, grad_data, mvp_data,
+               reduction, mvp_amortize=False, reduce=None):
+    """:func:`_hf_acc_step`'s loss, flat gradient, matvec and ``loss_at``
+    over the datalists (with ``reduce``, this rank's chunks)."""
+    fns, reg = _split_reg(_maybe_remat(fns, config), reduce)
+    init_loss, grad_vec, mvp_vec = _reduce_then_regularize(
+        config, ravel, params,
+        acc.acc_loss(fns, params, loss_data, reduction),
+        acc.acc_grad(fns, params, grad_data, reduction, ravel),
+        acc.make_acc_mvp(fns, config, params, mvp_data, reduction, ravel,
+                         amortize=mvp_amortize),
+        reg, reduce,
+    )
+    loss_at = _loss_at(lambda p: acc.acc_loss(fns, p, loss_data, reduction),
+                       reg, ravel, params, reduce)
+    return init_loss, grad_vec, mvp_vec, loss_at
 
 
 def make_hf_acc_step(
@@ -897,7 +1045,25 @@ class HessianFree:
         trainable: optional boolean mask tree.
         config: :class:`HFConfig`; or pass its fields as keyword args.
         pad_to_multiple: flat-space padding (see :class:`TrainableRavel`).
-        mesh: not ported (ROADMAP.md, queue 1, item 20).
+        mesh: a ``DeviceMesh`` from :func:`~.parallel.mesh.make_mesh` with
+            a ``data_axis``: :meth:`step`, :meth:`acc_step`,
+            :meth:`train_steps` and :meth:`get_preconditioner` run
+            data-parallel (:mod:`.parallel.data_parallel`).  Every rank
+            constructs the optimizer (rank 0's parameters are broadcast to
+            the others) and passes its own rows of each batch
+            (:func:`~.parallel.mesh.shard_batch`, or a
+            ``DevicePrefetcher(sharding=...)``); the Nystrom sketch and the
+            spectrum take the batch they are given on each rank alone, as
+            the JAX package's do.  The loss's reduction (``"mean"`` or
+            ``"sum"``, which the JAX package's GSPMD step derives from the
+            loss) is read from the loss on the first batch; a loss that is
+            neither raises.  A model whose forward couples the rows
+            (BatchNorm's batch statistics) sees each rank's rows alone
+            (ROADMAP.md, fault F2).  A ``model_axis`` (solver-state
+            sharding) is not ported yet.
+        data_axis / model_axis: the mesh's axis names.
+        param_specs / batch_specs: tensor and context parallelism; not
+            ported yet (ROADMAP.md, queue 1, item 20c).
 
     :meth:`save` and :meth:`load` checkpoint the parameters, the optimizer
     state and the history (:mod:`.checkpoint`).
@@ -914,14 +1080,30 @@ class HessianFree:
         config: Optional[HFConfig] = None,
         pad_to_multiple: Optional[int] = 1024,
         mesh=None,
+        data_axis: str = "data",
+        model_axis: str = "model",
+        param_specs=None,
+        batch_specs=None,
         **config_kwargs,
     ):
         if config is None:
             config = HFConfig(**config_kwargs)
         elif config_kwargs:
             raise ValueError("Pass either config or keyword args, not both.")
+        if param_specs is not None or batch_specs is not None:
+            raise not_ported("param_specs= / batch_specs=", "item 20c")
         if mesh is not None:
-            raise not_ported("mesh=", "item 20")
+            names = mesh.mesh_dim_names or ()
+            if model_axis in names:
+                raise not_ported("HessianFree(mesh=) with a model axis",
+                                 "item 20c")
+            if data_axis not in names:
+                raise ValueError(
+                    f"mesh has no {data_axis!r} axis (axes {names})"
+                )
+        self.mesh = mesh
+        self._data_axis = data_axis
+        self._dp_reduction = None
         self.config = config
         self.fns = HFModelFns(
             model_fn=model_fn,
@@ -934,6 +1116,10 @@ class HessianFree:
                 "curvature_opt='ggn' requires model_fn + loss_outer."
             )
         self.params = tree_map(lambda t: t.detach().clone(), params)
+        if mesh is not None:
+            from .parallel.data_parallel import _broadcast_replicas
+
+            _broadcast_replicas(self.params, mesh, data_axis)
         self.ravel = TrainableRavel(
             self.params, trainable, pad_to_multiple=pad_to_multiple
         )
@@ -964,6 +1150,23 @@ class HessianFree:
         h["num_cg_iters"].append(int(stats.num_cg_iters))
         h["best_cg_iters"].append(int(stats.best_cg_iter))
         h["learning_rates"].append(float(stats.lr))
+
+    def _loss_reduction(self, batch) -> str:
+        """The loss's reduction for the data-parallel steps, read from the
+        first batch (:func:`.parallel.data_parallel._loss_reduction`) and
+        kept."""
+        if self._dp_reduction is None:
+            from .parallel.data_parallel import _loss_reduction
+
+            self._dp_reduction = _loss_reduction(
+                self.fns, self.params, batch, self.mesh, self._data_axis
+            )
+        return self._dp_reduction
+
+    def clear_caches(self) -> None:
+        """The JAX package drops its compiled step variants here.  The
+        eager port compiles nothing and keeps no variant, so there is
+        nothing to drop."""
 
     def _record(self, stats: HFStats) -> float:
         h = self.history
@@ -1028,6 +1231,29 @@ class HessianFree:
             )
         if M is not None and precond_diag is not None:
             raise ValueError("Pass either M or precond_diag, not both.")
+        if self.mesh is not None:
+            if precond_lowrank is not None:
+                raise ValueError(
+                    "precond_lowrank is not supported with mesh=; use the "
+                    "functional hf_step with an explicit M closure instead."
+                )
+            if M is not None or mvp is not None or grad_vec is not None:
+                raise ValueError(
+                    "Custom M/grad/mvp closures are not supported with "
+                    "mesh=; use the functional hf_step instead."
+                )
+            from .parallel.data_parallel import make_dp_hf_step
+
+            step = make_dp_hf_step(
+                self.fns, self.config, self.ravel, self.mesh,
+                axis_name=self._data_axis,
+                precond_exponent=self.config.precond_exponent,
+                reduction=self._loss_reduction(batch),
+            )
+            self.params, self.state, stats = step(
+                self.params, self.state, batch, precond_diag
+            )
+            return self._record(stats)
         self.params, self.state, stats = hf_step(
             self.params, self.state, batch, fns=self.fns, config=self.config,
             ravel=self.ravel, precond_diag=precond_diag,
@@ -1061,6 +1287,25 @@ class HessianFree:
         first chunk of ``loss_data`` and warns."""
         if test_deterministic:
             self._warn_if_nondeterministic(acc._chunks(loss_data)[0])
+        if self.mesh is not None:
+            if grad_data is not None or mvp_data is not None:
+                raise ValueError(
+                    "acc_step with mesh= supports only loss_data (stacked); "
+                    "use hf_acc_step / parallel.* builders for independent "
+                    "grad/mvp datalists."
+                )
+            from .parallel.data_parallel import make_dp_hf_acc_step
+
+            step = make_dp_hf_acc_step(
+                self.fns, self.config, self.ravel, self.mesh,
+                axis_name=self._data_axis, reduction=reduction,
+                precond_exponent=self.config.precond_exponent,
+                mvp_amortize=mvp_amortize,
+            )
+            self.params, self.state, stats = step(
+                self.params, self.state, loss_data, precond_diag=precond_diag
+            )
+            return self._record(stats)
         self.params, self.state, stats = hf_acc_step(
             self.params, self.state, fns=self.fns, config=self.config,
             ravel=self.ravel, loss_data=loss_data, grad_data=grad_data,
@@ -1078,12 +1323,25 @@ class HessianFree:
         ``precond_ema_decay``: precondition every CG solve with an EMA of
         the empirical-Fisher diagonals.  The EMA persists across calls, one
         per decay value (switching decays does not continue another decay's
-        average)."""
-        loop = make_hf_train_loop(
-            self.fns, self.config, self.ravel,
-            precond_exponent=self.config.precond_exponent,
-            precond_ema_decay=precond_ema_decay,
-        )
+        average).  With ``mesh=``, ``batches`` holds this rank's rows of
+        each step's batch (leaves ``[T, N / ranks, ...]``)."""
+        if self.mesh is not None:
+            from .parallel.data_parallel import make_dp_hf_train_loop
+
+            loop = make_dp_hf_train_loop(
+                self.fns, self.config, self.ravel, self.mesh,
+                axis_name=self._data_axis,
+                precond_exponent=self.config.precond_exponent,
+                precond_ema_decay=precond_ema_decay,
+                reduction=self._loss_reduction(
+                    tree_map(lambda a: a[0], batches)),
+            )
+        else:
+            loop = make_hf_train_loop(
+                self.fns, self.config, self.ravel,
+                precond_exponent=self.config.precond_exponent,
+                precond_ema_decay=precond_ema_decay,
+            )
         if precond_ema_decay is None:
             self.params, self.state, stats = loop(
                 self.params, self.state, batches
@@ -1110,13 +1368,18 @@ class HessianFree:
         :meth:`step` or :meth:`acc_step` as ``precond_diag``.  The step
         builds ``(D + damping)^(-config.precond_exponent)`` with the live
         damping.  (The reference's method of this name returns ``None``;
-        this one returns the diagonal, as the JAX package's does.)"""
+        this one returns the diagonal, as the JAX package's does.)  With
+        ``mesh=``, ``inputs`` and ``targets`` are this rank's rows and the
+        ranks' partial sums are reduced (``parallel.dp_diag_EF``)."""
         fn = diag_EF_scan if use_scan else diag_EF
         with precision_ctx(self.config):
-            return fn(
-                self.fns.model_fn, self.fns.loss_outer, self.params, inputs,
-                targets, reduction, self.ravel, loss_reg=self.fns.loss_reg,
-            )
+            reduce = None
+            if self.mesh is not None:
+                from .parallel.data_parallel import _Reduce
+
+                reduce = _Reduce(self.mesh, self._data_axis, "sum")
+            return _diag(self.fns, self.params, inputs, targets, reduction,
+                         self.ravel, reduce, diag=fn)
 
     def test_reduction(self, datalist, reduction: str) -> None:
         """Raise ``RuntimeError`` if the loss's reduction is not

@@ -22,6 +22,11 @@ The reference's pipeline is torch ``DataLoader`` workers + a blocking
 ``.to(device)`` per batch inside the train loop
 (reference examples/run_allcnnc_cifar100_deepobs.py:55-60).  On
 ``device="cpu"`` a leaf becomes a plain ``torch.from_numpy`` tensor.
+
+With a ``sharding`` (:func:`~..parallel.mesh.batch_sharding`), a
+data-parallel rank keeps only its own rows of each global batch, cut from
+the host arrays before the pinned copy, so that each rank copies only its
+share to its card.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
-from ..config import not_ported
 from ..utils.flatten import tree_flatten, tree_map
 
 
@@ -68,9 +72,11 @@ class DevicePrefetcher:
             generator of ``(inputs, targets)``).
         depth: number of batches transferred ahead (queue bound).  2 is
             enough to hide the transfer behind any step that outlasts it.
-        device: ``"cuda"`` (the default; raises if there is no CUDA device)
-            or ``"cpu"`` (plain ``torch.from_numpy``, for tests and CPU
-            runs).  Nothing falls back from the card to the CPU.
+        device: ``"cuda"`` (the default without ``sharding``; raises if
+            there is no CUDA device) or ``"cpu"`` (plain
+            ``torch.from_numpy``, for tests and CPU runs); with
+            ``sharding``, the rank's device by default.  Nothing falls back
+            from the card to the CPU.
         n_batches: stop after this many batches (``None`` = run until the
             source is exhausted or :meth:`close` is called).  Useful for
             epoch-bounded loops over the endless ``PrefetchLoader`` stream.
@@ -78,8 +84,10 @@ class DevicePrefetcher:
             (ownership transfer) -- so e.g. a ``PrefetchLoader``'s native
             threads and mmap handles are released with the prefetcher
             instead of lingering until GC.
-        sharding: only ``None``; laying batches out over several devices is
-            not ported (ROADMAP.md, item 20).
+        sharding: a :class:`~..parallel.mesh.Sharding`
+            (:func:`~..parallel.mesh.batch_sharding` or
+            :func:`~..parallel.mesh.replicated`): each batch arrives as
+            this rank's rows, on the rank's device.
     """
 
     _SENTINEL = object()
@@ -88,16 +96,27 @@ class DevicePrefetcher:
         self,
         source: Iterator[Any],
         depth: int = 2,
-        device: Any = "cuda",
+        device: Any = None,
         n_batches: Optional[int] = None,
         close_source: bool = False,
         sharding: Optional[Any] = None,
     ):
-        if sharding is not None:
-            raise not_ported("sharding=", "item 20")
         if depth < 1:
             raise ValueError(f"Invalid depth {depth}")
-        self.device = torch.device(device)
+        self._take = None
+        if sharding is not None:
+            from ..parallel.distributed import rank_device
+            from ..parallel.mesh import Sharding
+
+            if not isinstance(sharding, Sharding):
+                raise TypeError(
+                    "DevicePrefetcher: sharding must be a parallel.mesh."
+                    f"Sharding (batch_sharding / replicated), not {sharding!r}"
+                )
+            self._take = sharding.take
+            if device is None:
+                device = rank_device()
+        self.device = torch.device("cuda" if device is None else device)
         self._stream = None
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -132,7 +151,10 @@ class DevicePrefetcher:
         return False
 
     def _transfer(self, batch):
-        """``(device tree, copy event or None)`` for one host batch."""
+        """``(device tree, copy event or None)`` for one host batch (this
+        rank's rows of it with a sharding)."""
+        if self._take is not None:
+            batch = tree_map(self._take, batch)
         host = tree_map(_host_tensor, batch)
         if self._stream is None:
             return host, None

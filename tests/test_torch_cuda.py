@@ -3,7 +3,9 @@ CG (plain and preconditioned) on the card against CG on the CPU, the
 empirical-Fisher diagonal and the LM matvecs on the card against the CPU,
 the peak memory that rematerialization saves on the card, and the Nystrom
 sketch, Lanczos/SLQ, the batched select modes, the reduced-precision
-iterate store and checkpoints on the card against the CPU.
+iterate store and checkpoints on the card against the CPU, and the
+data-parallel pieces on a 1-rank NCCL group (the prefetcher's sharding, a
+DP step equal to ``hf_step``).
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -454,3 +456,109 @@ def test_module_adapter_allcnnc_gradient_on_card_matches_cpu(cuda):
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-12, atol=0)
     err = torch.linalg.vector_norm(g_gpu - g_cpu)
     assert err <= 1e-10 * torch.linalg.vector_norm(g_cpu)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1-rank NCCL group (the default backend on the card) and its
+    mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) for the kernel")
+    import socket
+
+    import torch.distributed as dist
+
+    from pytorchhessianfree_tpu_torch.parallel import distributed as pdist
+    from pytorchhessianfree_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    pdist.initialize_distributed(f"localhost:{port}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    yield make_mesh()
+    dist.destroy_process_group()
+    pdist._device = None
+
+
+class _SecondOfTwo:
+    """A mesh as rank 1 of a 2-rank data axis sees it."""
+
+    mesh_dim_names = ("data",)
+
+    def size(self, dim):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 1
+
+
+def test_prefetcher_with_sharding_on_card_keeps_the_rank_rows(nccl_mesh):
+    """``DevicePrefetcher(sharding=)`` on the card: each batch is this
+    rank's rows, bit for bit, on the rank's card (all rows on the 1-rank
+    mesh and when replicated; the second half as rank 1 of 2)."""
+    from pytorchhessianfree_tpu_torch.parallel.mesh import (
+        Sharding,
+        batch_sharding,
+        replicated,
+    )
+    from pytorchhessianfree_tpu_torch.runtime import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 28, 28, 1), dtype=np.float32)
+    y = rng.integers(0, 10, 8).astype(np.int64)
+    for sharding, rows in ((batch_sharding(nccl_mesh), slice(0, 8)),
+                           (replicated(nccl_mesh), slice(0, 8)),
+                           (Sharding(_SecondOfTwo(), "data"), slice(4, 8))):
+        with DevicePrefetcher(iter([(x, y)] * 3), sharding=sharding) as pf:
+            got = list(pf)
+        assert len(got) == 3
+        for bx, by in got:
+            assert bx.device == torch.device("cuda", 0)
+            assert torch.equal(bx.cpu(), torch.from_numpy(x[rows]))
+            assert torch.equal(by.cpu(), torch.from_numpy(y[rows]))
+
+
+def test_one_rank_nccl_dp_step_is_hf_step_on_card(nccl_mesh):
+    """``make_dp_hf_step`` on the 1-rank NCCL mesh equals ``hf_step`` bit
+    for bit on a narrow ResNet-18, f32, cuDNN deterministic."""
+    from pytorchhessianfree_tpu_torch import (
+        HFConfig,
+        HFModelFns,
+        hf_step,
+        init_state,
+    )
+    from pytorchhessianfree_tpu_torch.models import (
+        init_resnet18,
+        resnet18_apply,
+    )
+    from pytorchhessianfree_tpu_torch.parallel.data_parallel import (
+        make_dp_hf_step,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_resnet18(gen, width_scale=1 / 8)
+    x = torch.randn((16, 28, 28, 1), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (16,), generator=gen, device="cuda")
+    fns = HFModelFns(model_fn=resnet18_apply, loss_outer=cross_entropy_loss)
+    config = HFConfig(damping=1.0, cg_max_iter=20)
+    ravel = TrainableRavel(params, pad_to_multiple=1024)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for step in (
+            lambda p, s, b: hf_step(p, s, b, fns=fns, config=config,
+                                    ravel=ravel),
+            make_dp_hf_step(fns, config, ravel, nccl_mesh),
+        ):
+            p, s = params, init_state(ravel, config)
+            for _ in range(2):
+                p, s, stats = step(p, s, (x, y))
+            runs.append((ravel.ravel(p), s, stats))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (pa, sa, ta), (pb, sb, tb) = runs
+    assert torch.equal(pa, pb)
+    assert all(torch.equal(a, b) for a, b in zip(sa, sb))
+    assert ta.num_cg_iters == tb.num_cg_iters
+    assert torch.equal(ta.final_loss, tb.final_loss)

@@ -1,13 +1,15 @@
 """The port's examples (``examples_torch/``): the CPU-sized ones run end to
-end with ``--cpu --tiny``, each in its own process with its own timeout;
-every example imports with ``jax`` blocked; without ``--cpu`` an example
-needs the card and stops without one."""
+end with ``--cpu --tiny``, each in its own process with its own timeout,
+and ``run_allcnnc_cifar100.py --dp`` on two gloo ranks under
+``torch.distributed.run``; every example imports with ``jax`` blocked;
+without ``--cpu`` an example needs the card and stops without one."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,18 +31,25 @@ CPU_RUNS = {
 }
 
 
+# the data-parallel example, as torch.distributed.run starts it
+DP_RUN = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+          "2", "run_allcnnc_cifar100.py", "--dp", "--cpu", "--tiny"]
+
+
 @pytest.fixture(scope="module")
 def started():
     """Every CPU example, started at once with one thread each, so that the
     file waits for the slowest example and not for their sum."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    runs = {name: [str(EXAMPLES / f"{name}.py"), "--cpu", "--tiny"]
+            for name in CPU_RUNS}
+    runs["dp"] = DP_RUN
     procs = {
         name: subprocess.Popen(
-            [sys.executable, str(EXAMPLES / f"{name}.py"), "--cpu", "--tiny"],
-            cwd=EXAMPLES, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True,
+            [sys.executable, *args], cwd=EXAMPLES, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        for name in CPU_RUNS
+        for name, args in runs.items()
     }
     yield procs
     for proc in procs.values():
@@ -62,6 +71,25 @@ def test_cpu_example_runs(started, name):
     assert CPU_RUNS[name] in out, out[-2000:]
 
 
+def test_cpu_data_parallel_example_runs(started):
+    """``run_allcnnc_cifar100.py --dp --cpu --tiny`` on two gloo ranks:
+    exit 0, rank 0's two steps with finite, falling losses."""
+    proc = started["dp"]
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        pytest.fail(f"the --dp example did not finish within {TIMEOUT} s")
+    assert proc.returncode == 0, err[-3000:]
+    assert "on cpu, 2 data-parallel ranks" in out, out[:300]
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert len(steps) == 2, out[-2000:]
+    for line in steps:
+        before, after = (float(v) for v in
+                         line.split("loss ")[1].split(" |")[0].split(" -> "))
+        assert after <= before and np.isfinite(after), line
+
+
 _IMPORT_ALL = """
 import importlib, runpy, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -71,8 +99,7 @@ for name in names:
     importlib.import_module(name)
 assert not any(m == "pytorchhessianfree_tpu"
                or m.startswith("pytorchhessianfree_tpu.") for m in sys.modules)
-for script in ("run_allcnnc_cifar100", "run_moe_lm"):
-    flag = "--dp" if script.startswith("run_all") else "--ep"
+for script, flag in (("run_moe_lm", "--ep"),):
     sys.argv = [script, "--cpu", flag]
     try:
         runpy.run_path({examples!r} + "/" + script + ".py",
@@ -87,8 +114,9 @@ print(len(names))
 
 def test_every_example_imports_without_jax():
     """Every port example imports without JAX and without the JAX package
-    (their work runs under ``__main__``), and the parallel flags of the
-    JAX examples raise as not ported."""
+    (their work runs under ``__main__``), and the parallel flag of the JAX
+    examples that waits for a later item (``run_moe_lm.py --ep``) raises
+    as not ported."""
     names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
     assert {"example_utils", "run_resnet18_mnist", "run_allcnnc_cifar100",
             "run_pipeline", "run_transformer", "run_decoder_lm",

@@ -35,6 +35,12 @@ import pytorchhessianfree_tpu_torch.runtime
 import pytorchhessianfree_tpu_torch.runtime.loader
 import pytorchhessianfree_tpu_torch.runtime.prefetch
 import pytorchhessianfree_tpu_torch.utils.memory
+import pytorchhessianfree_tpu_torch.parallel
+import pytorchhessianfree_tpu_torch.parallel.distributed
+import pytorchhessianfree_tpu_torch.parallel.mesh
+import pytorchhessianfree_tpu_torch.parallel.data_parallel
+sys.path.insert(0, "tests")
+import _torch_dp_worker  # the data-parallel rank of the CPU tests
 assert "pytorchhessianfree_tpu" not in sys.modules
 print(len(pkg.__all__))
 """

@@ -264,7 +264,7 @@ def test_wrapper_refuses_what_is_not_ported():
     batch = (torch.tensor(x), torch.tensor(y))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
-                        loss_outer=mse_loss, mesh=object())
+                        loss_outer=mse_loss, param_specs={})
     with pytest.raises(ValueError, match="either M or precond_diag"):
         opt.step(batch, M=lambda v: v, precond_diag=torch.ones(opt.ravel.dim))
     with pytest.raises(ValueError, match="model_fn"):

@@ -219,7 +219,7 @@ def test_device_prefetcher():
 
 
 def test_device_prefetcher_refuses_what_is_not_ported_or_absent():
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(TypeError, match="Sharding"):
         DevicePrefetcher(iter([]), device="cpu", sharding=object())
     with pytest.raises(ValueError):
         DevicePrefetcher(iter([]), depth=0, device="cpu")
