@@ -17,7 +17,7 @@ prints no ``ok`` line:
 4. CG on the card (kernel) against CG on the CPU (plain version) in f64;
 5. a narrow ResNet-18 HF step on the card against the same step on the CPU
    in f64;
-6. the main path: 3 Hessian-free steps of the full-width ResNet-18 (MNIST
+6. the main path: 2 Hessian-free steps of the full-width ResNet-18 (MNIST
    shapes, batch 32, GGN, ``HFConfig(damping=1.0, cg_max_iter=50)``) in f32,
    with the kernel's launch count checked against the CG iterations, and
    the GGN matvec time;
@@ -35,13 +35,13 @@ prints no ``ok`` line:
    and the narrow encoder classifier's forward on both;
 10. the full-width decoder LM (19,505,152 parameters, batch 32 x T 128 of
     the affine next-token rule on vocab 1024, GGN,
-    ``HFConfig(damping=1.0, cg_max_iter=50)``, f32): 3 steps, the build,
+    ``HFConfig(damping=1.0, cg_max_iter=50)``, f32): 2 steps, the build,
     matvec and peak memory, a bf16-curvature step from the same start with
     its matvec held against f32, and a T 1024 point whose chunked matvecs
     (linearized; one-shot; one-shot and rematerialized) are held against
     full attention, with the peak memory of each;
 11. the full-width MoE decoder LM (8 experts, top-2, capacity 1.25, one
-    router group; 107,717,632 parameters): 2 steps, matvec and peak memory;
+    router group; 107,717,632 parameters): 1 step, matvec and peak memory;
 12. the rest of the optimizer on the main path (ResNet-18/MNIST b32 as in
     phase 6, ``cudnn.deterministic`` on): a) a rank-32 Nystrom sketch of the
     GGN (eigenvalues >= 0 and descending, orthonormal columns, the sketch
@@ -50,7 +50,7 @@ prints no ``ok`` line:
     whose trace must equal ``dim * mean_p(v_p^T A v_p)``; b) the next
     step's damped system solved by CG plain, with the iterates stored in
     bf16 (the same iteration bit for bit, a bf16 buffer) and with the
-    Nystrom preconditioner; c) 2 Nystrom-preconditioned steps with
+    Nystrom preconditioner; c) a Nystrom-preconditioned step with
     ``rich_stats`` (a finite m-history, ``format_rich_stats``); d) a
     sequential and a batched selection step from one saved state (the same
     CG iterations, shared losses within rtol 1e-4, the same selection
@@ -84,12 +84,11 @@ prints no ``ok`` line:
     [11,175,936] f32 vector; b) two ranks sharing the card over gloo (this
     script with ``--dp-rank``, in two subprocesses): the same ResNet-18 b32
     as two shards of 16, the reduced loss, gradient and one GGN matvec
-    within relative norm 1e-5 of one process's accumulated values over the
-    same two shards (BatchNorm normalizes each shard by its own statistics,
-    the JAX package's ``shard_map`` semantics; its GSPMD step would use
-    the whole batch's, ROADMAP.md fault F2, so the distance to the whole
-    batch of 32 is printed with no bound), 2 DP
-    steps with finite, non-increasing losses and the two ranks' parameters
+    with each rank's BatchNorm statistics its own rows' (the ``shard_map``
+    names) within relative norm 1e-5 of one process's accumulated values
+    over the same two shards (their distance to the whole batch printed
+    with no bound), 2 ``make_dp_hf_step`` steps (BatchNorm over both ranks'
+    rows, 15 e) with finite, non-increasing losses and the two ranks' parameters
     equal bit for bit after each (and their CG iterations equal), the step
     time, and the gloo ``all_reduce`` time of the same vector on the card;
     c) on the same two ranks, phase 8's All-CNN-C/CIFAR-100 (b256 as 4
@@ -100,23 +99,57 @@ prints no ``ok`` line:
     bit for bit; d) ``examples_torch/run_allcnnc_cifar100.py --dp
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 2`` on
     the card, exit 0 with finite losses.  Each rank counts its kernel
-    launches, which must equal its CG iterations, and the parent adds them.
+    launches, which must equal its CG iterations, and the parent adds them;
+15. the model axis (``parallel/sharded.py``), f32 with TF32 off and
+    ``cudnn.deterministic`` on: a) NCCL on a 1-rank (data 1, model 1)
+    mesh, one ``make_sharded_hf_step`` step of phase 6's ResNet-18 equal to
+    ``hf_step`` bit for bit; b) two gloo ranks sharing the card (this
+    script with ``--shard-rank``), a (data 1, model 2) mesh, the same
+    ResNet-18: 2 sharded steps (K1 on 5,587,968 elements per rank, replicas
+    bitwise equal, finite non-increasing losses), a 10-iteration CG solve
+    of the first step's system on the ranks' blocks within 1e-5 of one
+    process's (iterate and m-history, norm-wise), the steps' distance to
+    one process's ``hf_step`` (no bound: f32 dots summed in two blocks can
+    move Martens' stop), each rank's peak of requested bytes against one
+    process's beside ``solver_memory_bytes``, and the gloo time of a CG
+    iteration's collectives; c) the same ranks, the full-width decoder LM
+    (b32 x T128): context parallel (``batch_specs=P(None, "model")``) loss,
+    gradient and GGN matvec within 1e-5 of one process's, a 10-iteration
+    CG solve of the start's system on the ranks' blocks within 1e-5 of one
+    process's under context parallelism and under the Megatron specs, and
+    2 steps; a Megatron ``param_specs`` step equal bit for bit to the step
+    with replicated weights; each first step within 1e-5 of one process's
+    ``hf_step`` where their CG iterations agree; d) the full-width MoE LM under ``moe_param_specs``
+    (4 of 8 experts per rank): loss and one GGN matvec within 1e-5 of one
+    process's, 1 step and each rank's peak memory; e) fault F2, on b's
+    ranks as a (data 2) mesh, ResNet-18 b32 as 2 x 16: the GSPMD names'
+    reduced loss, gradient and GGN matvec (BatchNorm over both ranks' rows)
+    against one process on the whole batch, in f64 (within 1e-10), in f32
+    with cuDNN off (within 1e-5) and with cuDNN (within ten times cuDNN's
+    own distance from the native convolutions, gradient and matvec, in one
+    process on rank 0's 16 rows plus on the 32); f) ``run_sharded.py --tp``,
+    ``run_context_parallel.py --tiny`` and ``run_moe_lm.py --ep --tiny`` under
+    ``torch.distributed.run --nproc-per-node 2 --backend gloo``, each exit
+    0 with rank 0 printing alone.  Each rank counts its kernel launches,
+    which must equal its CG iterations.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
 trace of 5 matvecs.
 
 Phase 3 also holds the kernel against its plain version at the flat
-dimensions of phases 10 and 11 and times it at the n of each path beside
-its bound.  The ``kernels`` line counts the kernel's launches on the four
+dimensions of phases 10 and 11 and at the blocks of n / 2 that each rank
+of 15 b-d gives it (f32), and times it at each of those n beside its
+bound.  The ``kernels`` line counts the kernel's launches on the four
 paths (phases 6, 8, 10 and 11), the steps of phase 12, those of phase
-13 b (read from the example's output) and c, and those of phase 14's steps
-on every rank; the launches of the comparisons and of phase 12's
+13 b (read from the example's output) and c, and those of phase 14's and
+15's steps on every rank; the launches of the comparisons (the one-process
+references, 15 b's and c's fixed-length solves) and of phase 12's
 standalone CG solves do not count.
 
 It needs a CUDA device, ``nvcc`` (the CUDA toolkit) and ``g++``, and
 imports no JAX.  ``python3 chip_smoke.py --phase 14`` builds the kernel and
-runs phase 14 alone, and prints neither the ``kernels`` line nor the ``ok``
-line.
+runs phase 14 alone, ``--phase 15`` phase 15 alone and ``--phase 3`` phase
+3 alone; none of them prints the ``kernels`` line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -150,12 +183,18 @@ from pytorchhessianfree_tpu_torch import (
 from pytorchhessianfree_tpu_torch.config import precision_ctx
 from pytorchhessianfree_tpu_torch.ops import cg_update as ops
 from pytorchhessianfree_tpu_torch.parallel import (
+    collectives,
     data_parallel as dp,
     distributed as pdist,
     mesh as pmesh,
+    sharded,
 )
 from pytorchhessianfree_tpu_torch.ops.curvature import ggnvp, value_and_grad
-from pytorchhessianfree_tpu_torch.utils.flatten import tree_flatten, tree_map
+from pytorchhessianfree_tpu_torch.utils.flatten import (
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
 from pytorchhessianfree_tpu_torch.utils.memory import (
     format_solver_memory,
     solver_memory_bytes,
@@ -168,6 +207,9 @@ DENSE_LM_N = 19_505_152  # decoder LM parameters = flat dimension
 MOE_N = 107_717_632  # MoE decoder LM parameters = flat dimension
 PATH_N = {"ResNet-18": MAIN_N, "All-CNN-C": ALLCNNC_N,
           "decoder LM": DENSE_LM_N, "MoE LM": MOE_N}
+# each rank's block of a flat vector split over a model axis of 2 (15 b-d)
+BLOCK_N = {f"{path} block": n // 2
+           for path, n in PATH_N.items() if path != "All-CNN-C"}
 NARROW_SEED = 0  # phase 7's weights and batch
 RAGGED_N = 1_000_003
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -217,13 +259,13 @@ def kernel_bound_ms(n):
 
 
 def phase_kernel():
-    """Kernel against plain on the card, at the n of every path and a
-    ragged n, and its time at the n of every path; returns the main-size
-    f32 record."""
+    """Kernel against plain on the card, at the n of every path, of every
+    rank's block in phase 15 and a ragged n, and its time at each of those
+    but the ragged one; returns the main-size f32 record."""
     record = {}
     checks = [(n, dtype) for n in (MAIN_N, ALLCNNC_N, RAGGED_N, DENSE_LM_N)
               for dtype in (torch.float32, torch.float64)]
-    checks.append((MOE_N, torch.float32))
+    checks += [(n, torch.float32) for n in (MOE_N, *BLOCK_N.values())]
     for n, dtype in checks:
         args = kernel_inputs(n, dtype, seed=n % 1000)
         ref = ops.fused_cg_update_reference(*args)
@@ -246,7 +288,7 @@ def phase_kernel():
             record["max_abs_err"] = max(errs)
         del args, ref, out, again
 
-    for path, n in PATH_N.items():
+    for path, n in {**PATH_N, **BLOCK_N}.items():
         args = kernel_inputs(n, torch.float32, seed=1)
         kernel = functools.partial(ops.fused_cg_update, *args)
         plain = functools.partial(ops.fused_cg_update_reference, *args)
@@ -403,7 +445,7 @@ def resnet_opt(params, **config):
 
 
 def phase_main():
-    """The main path: 3 HF steps of full-width ResNet-18/MNIST b32."""
+    """The main path: 2 HF steps of full-width ResNet-18/MNIST b32."""
     opt, (x, y), gen = resnet_main_path()
     count = opt.ravel.unpadded_dim
     if opt.ravel.dim != MAIN_N:
@@ -411,7 +453,7 @@ def phase_main():
     print(f"main path: ResNet-18, {count} parameters, flat dim "
           f"{opt.ravel.dim}, batch 32 x 28x28x1, GGN, cg_max_iter=50, f32")
 
-    launches = run_steps(opt, (x, y), 3, "the main path")
+    launches = run_steps(opt, (x, y), 2, "the main path")
 
     # GGN matvec time as the step builds it, and the per-matvec jvp form
     # (which recomputes the primal forward in every matvec) beside it
@@ -717,7 +759,7 @@ def cosine(a, b):
 
 
 def phase_decoder_lm():
-    """3 HF steps of the full-width decoder LM, a bf16-curvature step from
+    """2 HF steps of the full-width decoder LM, a bf16-curvature step from
     the same start, and the long-sequence chunked matvec."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_decoder_lm(gen, max_len=128, **LM)
@@ -736,7 +778,7 @@ def phase_decoder_lm():
     start = opt.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = run_steps(opt, batch, 3, "the decoder LM path")
+    launches = run_steps(opt, batch, 2, "the decoder LM path")
     print(f"decoder LM steps: peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
     lm_matvec(opt, batch, gen, "decoder LM")
@@ -833,7 +875,7 @@ def phase_long_sequence(gen):
 
 
 def phase_moe_lm():
-    """2 HF steps of the full-width MoE decoder LM."""
+    """1 HF step of the full-width MoE decoder LM."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_moe_decoder_lm(gen, n_experts=8, max_len=128, **LM)
     count = sum(t.numel() for t in tree_flatten(params)[0])
@@ -852,7 +894,7 @@ def phase_moe_lm():
     del params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = run_steps(opt, batch, 2, "the MoE LM path")
+    launches = run_steps(opt, batch, 1, "the MoE LM path")
     print(f"MoE LM steps: peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
     lm_matvec(opt, batch, gen, "MoE LM")
@@ -1021,7 +1063,7 @@ def phase_resnet_features():
         if not bool(torch.isfinite(m).all()):
             raise AssertionError(f"m-history not finite: {m}")
 
-    launches = run_steps(opt, batch, 2, "phase 12's preconditioned steps",
+    launches = run_steps(opt, batch, 1, "phase 12's preconditioned step",
                          each=detail_finite, precond_lowrank=sketch)
     text = pkg.format_rich_stats(opt.last_stats).splitlines()
     m_lines = [ln for ln in text if "  m = " in ln]
@@ -1432,6 +1474,7 @@ def dp_rank(rank, world, port, out_path):
     v = torch.randn(ravel.dim, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
     with precision_ctx(config):
+        # the shard_map names' semantics: each rank's rows alone
         loss, grad, mvp = optimizer._build_matvec_and_grad(
             fns, config, ravel, opt.params, local,
             dp._Reduce(mesh, "data", "mean"))
@@ -1578,14 +1621,15 @@ def phase_dp_two_ranks():
     steps = r0["b_steps"]
     print(f"14 b) two gloo ranks sharing the card (subprocesses, {wall:.1f} s "
           f"with start-up), ResNet-18/MNIST b32 as 2 x 16: reduced loss, "
-          f"gradient, GGN matvec vs one process on the same two shards as "
-          f"chunks, relative {r0['b_rel'][0]:.2e}, {r0['b_rel'][1]:.2e}, "
-          f"{r0['b_rel'][2]:.2e} (norm-wise, <= 1e-5); vs one process on "
-          f"the whole batch of 32 {r0['b_whole'][0]:.2e}, "
-          f"{r0['b_whole'][1]:.2e}, {r0['b_whole'][2]:.2e} (no bound: "
-          f"BatchNorm's batch statistics couple the rows, and each rank "
-          f"normalizes its 16, shard_map's semantics: open fault F2); 2 DP "
-          f"steps: losses "
+          f"gradient, GGN matvec with each rank's BatchNorm statistics its "
+          f"own rows' (the shard_map names) vs one process on the same two "
+          f"shards as chunks, relative {r0['b_rel'][0]:.2e}, "
+          f"{r0['b_rel'][1]:.2e}, {r0['b_rel'][2]:.2e} (norm-wise, <= "
+          f"1e-5), and vs one process on the whole batch of 32 "
+          f"{r0['b_whole'][0]:.2e}, {r0['b_whole'][1]:.2e}, "
+          f"{r0['b_whole'][2]:.2e} (no bound; 15 e has the GSPMD names'); "
+          f"2 make_dp_hf_step steps (BatchNorm over both ranks' rows): "
+          f"losses "
           f"{[(round(s['init'], 6), round(s['final'], 6)) for s in steps]}, "
           f"CG iterations {[s['iters'] for s in steps]} on both ranks, "
           f"parameters bitwise equal on both after each step; step ms (two "
@@ -1648,6 +1692,706 @@ def phase_dp_example():
     return launches
 
 
+def megatron_decoder_specs(n_layers):
+    """tests/test_sharded.py:316-331's Megatron tree for the decoder LM:
+    QKV and FF1 by column, proj and FF2 by row, the embeddings by feature
+    (the head is tied; ``ln_f`` replicated)."""
+    P = pmesh.PartitionSpec
+    col, row = P(None, "model"), P("model", None)
+    return {"embed": P(None, "model"), "pos": P(None, "model"), "ln_f": P(),
+            "blocks": [{"ln1": P(), "ln2": P(),
+                        "qkv": {"w": col, "b": P("model")},
+                        "proj": {"w": row, "b": P()},
+                        "ff1": {"w": col, "b": P("model")},
+                        "ff2": {"w": row, "b": P()}}
+                       for _ in range(n_layers)]}
+
+
+def whole_params(params, specs, mesh, ravel):
+    """A sharded step's parameters (its sharded leaves this rank's blocks)
+    -> the whole flat vector, on every rank."""
+    return ravel.ravel(sharded.unshard_params(params, specs, mesh, ravel))
+
+
+def same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_shard_nccl():
+    """15 a): NCCL on a 1-rank (data 1, model 1) mesh; one
+    ``make_sharded_hf_step`` step against ``hf_step``, bit for bit.
+    Returns the sharded step's launches."""
+    import torch.distributed as dist
+
+    pdist.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                 backend="nccl", device="cuda:0")
+    mesh = pmesh.make_mesh(axis_names=("data", "model"), shape=(1, 1))
+    opt, batch, _ = resnet_main_path()
+    ravel = opt.ravel
+    ref = optimizer.hf_step(opt.params, opt.state, batch, fns=opt.fns,
+                            config=opt.config, ravel=ravel)
+    step = sharded.make_sharded_hf_step(opt.fns, opt.config, ravel, mesh)
+    ops.fused_cg_update.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(opt.params, opt.state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.fused_cg_update.launches
+    (rp, rs, rst), (gp, gs, gst) = ref, got
+    if not (torch.equal(ravel.ravel(rp), ravel.ravel(gp))
+            and same_state(rs, gs) and rst.num_cg_iters == gst.num_cg_iters
+            and torch.equal(rst.init_loss, gst.init_loss)
+            and torch.equal(rst.final_loss, gst.final_loss)):
+        raise AssertionError(
+            f"1-rank sharded step differs from hf_step: cg "
+            f"{gst.num_cg_iters} vs {rst.num_cg_iters}, losses "
+            f"{float(gst.init_loss)} -> {float(gst.final_loss)} vs "
+            f"{float(rst.init_loss)} -> {float(rst.final_loss)}")
+    if launches != gst.num_cg_iters:
+        raise AssertionError(f"{launches} launches for {gst.num_cg_iters} "
+                             f"CG iterations")
+    print(f"15 a) NCCL, 1-rank (data 1, model 1) mesh: make_sharded_hf_step "
+          f"on ResNet-18/MNIST b32 from the seed-0 start equals hf_step bit "
+          f"for bit (parameters, state, {gst.num_cg_iters} CG iterations, "
+          f"losses {float(gst.init_loss):.6f} -> "
+          f"{float(gst.final_loss):.6f}); step {ms:.1f} ms; fused_cg_update "
+          f"launches {launches} = CG iterations")
+    dist.destroy_process_group()
+    pdist._device = None
+    return launches
+
+
+def timed_steps(step, params, state, batch, count, ravel, whole=None):
+    """``count`` steps with their host-clock ms, CG iterations, losses;
+    returns ``(params, state, records, whole flat parameters per step)``."""
+    records, flats = [], []
+    for _ in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, st = step(params, state, batch)
+        torch.cuda.synchronize()
+        records.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "iters": st.num_cg_iters,
+                        "init": float(st.init_loss),
+                        "final": float(st.final_loss)})
+        flats.append(ravel.ravel(params) if whole is None else whole(params))
+        records[-1]["params"] = digest(flats[-1])
+    return params, state, records, flats
+
+
+CG_CHECK_ITERS = 10
+
+
+def fixed_cg(A, b, **kwargs):
+    """CG for exactly :data:`CG_CHECK_ITERS` iterations (no Martens stop,
+    no tolerance): the sharded solver's arithmetic against one process's,
+    with no stopping decision that a last-bit difference could flip."""
+    return pkg.cg(A, b, max_iter=CG_CHECK_ITERS, tol=0.0,
+                  store_x_at_iters=(), **kwargs)
+
+
+def sharded_cg(shard, mvp, grad, damping):
+    """:func:`fixed_cg` of the damped system ``mvp + damping`` on this
+    rank's blocks; returns the whole iterate and the m-history."""
+    def A(v):
+        whole = shard.gather(v)
+        return shard(mvp(whole) + damping * whole)
+
+    res = fixed_cg(A, -grad, shard_vec=shard, shard_buf=shard)
+    return shard.gather(res.x), res.m_hist
+
+
+def spec_blocks(params, specs, mesh):
+    """This rank's blocks of the leaves that ``specs`` shards (the others
+    whole), as a sharded step keeps them between steps."""
+    leaves, treedef = tree_flatten(params)
+    per_leaf = sharded._spec_leaves(
+        sharded._param_shardings(mesh, params, specs))
+    return tree_unflatten(treedef, [
+        leaf if spec is None else pmesh.shard_leaf(leaf, spec, mesh)
+        for leaf, spec in zip(leaves, per_leaf)])
+
+
+def shard_resnet(mesh, rank, rec):
+    """15 b) on one rank: 2 sharded ResNet-18 steps, the step's peak, the
+    collectives of a CG iteration, and a fixed-length CG solve of the first
+    step's damped system on the rank's blocks; rank 0 then runs one
+    process's 2 ``hf_step`` steps and the same solve, and compares."""
+    import torch.distributed as dist
+
+    opt, batch, _ = resnet_main_path()
+    ravel, fns, config = opt.ravel, opt.fns, opt.config
+    step = sharded.make_sharded_hf_step(fns, config, ravel, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = requested_bytes("current")
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_cg_update.launches = 0
+    _, state, rec["b_steps"], flats = timed_steps(
+        step, opt.params, opt.state, batch, 2, ravel)
+    rec["b_launches"] = ops.fused_cg_update.launches
+    rec["b_peak"] = requested_bytes("peak") - base
+    rec["b_block"] = state.x0.numel()
+    shard = sharded.ModelShard(pmesh.model_axis(mesh), ravel.dim)
+    blk = torch.randn(shard.block, device="cuda")
+    rec["gather_ms"] = statistics.median(host_ms(lambda: shard.gather(blk),
+                                                 10))
+    rec["dot_ms"] = statistics.median(host_ms(lambda: shard.dot(blk, blk),
+                                              20))
+    del step, state, blk
+    with precision_ctx(config):
+        _, grad, mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, opt.params, batch)
+        x_sharded, m_sharded = sharded_cg(shard, mvp, grad, config.damping)
+    dist.barrier()
+    if rank == 0:
+        with precision_ctx(config):
+            one_cg = fixed_cg(lambda v: mvp(v) + config.damping * v, -grad)
+        rec["cg_rel"] = [rel(x_sharded, one_cg.x),
+                         rel(m_sharded, one_cg.m_hist)]
+        del grad, mvp, one_cg
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = requested_bytes("current")
+        torch.cuda.reset_peak_memory_stats()
+        one = functools.partial(optimizer.hf_step, fns=fns, config=config,
+                                ravel=ravel)
+        _, _, rec["b_ref_steps"], ref = timed_steps(
+            one, opt.params, opt.state, batch, 1, ravel)
+        rec["b_ref_peak"] = requested_bytes("peak") - base
+        rec["b_rel"] = [rel(a, b) for a, b in zip(flats, ref)]
+        rec["b_loss_rel"] = [abs(a["final"] / b["final"] - 1)
+                             for a, b in zip(rec["b_steps"],
+                                             rec["b_ref_steps"])]
+        mem = [solver_memory_bytes(ravel, config, m) for m in (1, 2)]
+        rec["b_est"] = [mem[0]["total"], mem[1]["per_device"]]
+
+
+def shard_decoder(mesh, rank, rec):
+    """15 c) on one rank: the full-width decoder LM: the context-parallel
+    loss, gradient and one GGN matvec, fixed-length CG solves of the start's
+    system on the ranks' blocks under context parallelism and under the
+    Megatron specs, 2 context-parallel steps, 1 Megatron step and 1 step
+    with replicated weights from the same start; rank 0 then computes one
+    process's values, solve and step."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_decoder_lm(gen, max_len=128, **LM)
+    tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
+    batch = (tokens, tokens)
+    fns = pkg.HFModelFns(
+        model_fn=functools.partial(models.decoder_lm_apply,
+                                   n_heads=LM["n_heads"]),
+        loss_outer=models.next_token_loss)
+    config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
+    ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
+    state = pkg.init_state(ravel, config)
+    P = pmesh.PartitionSpec
+    axis = pmesh.model_axis(mesh)
+    v = torch.randn(ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    local = sharded._place_batch(mesh, batch, P(None, "model"), None)
+    shard = sharded.ModelShard(axis, ravel.dim)
+    specs = megatron_decoder_specs(LM["n_layers"])
+    with collectives.axes(sequence=axis), precision_ctx(config):
+        loss, grad, mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, params, local,
+            sharded._AxesReduce(None, axis, "sum"))
+        mv = mvp(v)
+        solves = {"cp_cg": sharded_cg(shard, mvp, grad, config.damping)}
+    del mvp
+    # the Megatron specs' blocks of the weights, gathered as the step
+    # gathers them, under one process's forward on the whole batch
+    with precision_ctx(config):
+        _, tp_grad, tp_mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, sharded.unshard_params(
+                spec_blocks(params, specs, mesh), specs, mesh, ravel),
+            batch)
+        solves["tp_cg"] = sharded_cg(shard, tp_mvp, tp_grad, config.damping)
+    del tp_grad, tp_mvp
+    cp = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+                                      batch_specs=P(None, "model"))
+    ops.fused_cg_update.launches = 0
+    _, _, rec["cp_steps"], cp_flats = timed_steps(cp, params, state, batch,
+                                                  2, ravel)
+    rec["cp_launches"] = ops.fused_cg_update.launches
+    tp = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+                                      param_specs=specs)
+    ops.fused_cg_update.launches = 0
+    tp_params, _, rec["tp_steps"], tp_flats = timed_steps(
+        tp, params, state, batch, 1, ravel,
+        whole=lambda p: whole_params(p, specs, mesh, ravel))
+    rec["tp_launches"] = ops.fused_cg_update.launches
+    rec["tp_block"] = list(tp_params["blocks"][0]["qkv"]["w"].shape)
+    plain = sharded.make_sharded_hf_step(fns, config, ravel, mesh)
+    ops.fused_cg_update.launches = 0
+    _, _, rec["plain_steps"], plain_flats = timed_steps(
+        plain, params, state, batch, 1, ravel)
+    rec["plain_launches"] = ops.fused_cg_update.launches
+    # Megatron specs change where the weights live, not the arithmetic
+    rec["tp_equal"] = bool(torch.equal(tp_flats[0], plain_flats[0]))
+    del cp, tp, tp_params, plain
+    dist.barrier()
+    if rank == 0:
+        with precision_ctx(config):
+            r_loss, r_grad, r_mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, batch)
+            rec["cp_values_rel"] = [abs(float(loss) / float(r_loss) - 1),
+                                    rel(grad, r_grad), rel(mv, r_mvp(v))]
+            one_cg = fixed_cg(lambda u: r_mvp(u) + config.damping * u,
+                              -r_grad)
+        for key, (x, m_hist) in solves.items():
+            rec[key] = [rel(x, one_cg.x), rel(m_hist, one_cg.m_hist)]
+        del r_grad, r_mvp, one_cg
+        one = functools.partial(optimizer.hf_step, fns=fns, config=config,
+                                ravel=ravel)
+        _, _, rec["c_ref_steps"], ref = timed_steps(one, params, state,
+                                                    batch, 1, ravel)
+        rec["cp_rel"] = [rel(a, b) for a, b in zip(cp_flats, ref)]
+        rec["tp_rel"] = [rel(tp_flats[0], ref[0])]
+
+
+def shard_moe(mesh, rank, rec):
+    """15 d) on one rank: the full-width MoE LM under ``moe_param_specs``:
+    its loss and one GGN matvec through the expert-parallel forward, and 1
+    step with its peak; rank 0 then computes one process's loss and
+    matvec."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_moe_decoder_lm(gen, n_experts=8, max_len=128, **LM)
+    tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
+    batch = (tokens, tokens)
+    fns = pkg.HFModelFns(
+        model_fn=functools.partial(
+            models.moe_decoder_lm_apply, n_heads=LM["n_heads"],
+            capacity_factor=1.25, router_groups=1, top_k=2),
+        loss_outer=models.next_token_loss)
+    config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
+    ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
+    axis = pmesh.model_axis(mesh)
+    v = torch.randn(ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    with collectives.axes(expert=axis), precision_ctx(config):
+        loss, _, mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, params, batch,
+            sharded._AxesReduce(None, axis, "mean"))
+        mv = mvp(v)
+    rec["d_loss"] = float(loss)
+    del mvp
+    specs = models.moe_param_specs(LM["n_layers"])
+    step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+                                        param_specs=specs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_cg_update.launches = 0
+    p, _, rec["d_steps"], _ = timed_steps(
+        step, params, pkg.init_state(ravel, config), batch, 1, ravel,
+        whole=lambda p: whole_params(p, specs, mesh, ravel))
+    rec["d_launches"] = ops.fused_cg_update.launches
+    rec["d_peak"] = torch.cuda.max_memory_allocated()
+    rec["d_block"] = list(p["blocks"][0]["w1"].shape)
+    del step, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        with precision_ctx(config):
+            r_loss, _, r_mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, batch)
+            rec["d_rel"] = [abs(float(loss) / float(r_loss) - 1),
+                            rel(mv, r_mvp(v))]
+
+
+def f2_values(fns, config, params, batch, local, mesh, v, dtype):
+    """The GSPMD names' reduced loss, gradient and GGN matvec on the
+    ranks' rows (BatchNorm over both ranks' rows) in ``dtype``; on rank 0
+    also one process's on the whole batch.  Returns their relative
+    distances (rank 0) or ``None``."""
+    def cast(tree):
+        return tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                        else t, tree)
+
+    params, batch, local, v = (cast(t) for t in (params, batch, local, v))
+    ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
+    with precision_ctx(config):
+        with collectives.axes(batch=collectives.mesh_axis(mesh, "data")):
+            loss, grad, mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, local,
+                dp._Reduce(mesh, "data", "mean"))
+            mv = mvp(v)
+        if collectives.mesh_axis(mesh, "data").rank != 0:
+            return None
+        x, y = batch
+        w_loss, w_grad = value_and_grad(lambda p: fns.full_loss(p, batch),
+                                        params)
+        w_mv = ravel.ravel(ggnvp(
+            lambda p: fns.model_fn(p, x), lambda o: fns.loss_outer(o, y),
+            params, ravel.unravel(v)))
+    return [abs(float(loss) / float(w_loss) - 1),
+            rel(grad, ravel.ravel(w_grad)), rel(mv, w_mv)]
+
+
+def cudnn_vs_native(opt, batch, v):
+    """One process: the f32 gradient and GGN matvec on ``batch`` with
+    cuDNN's convolutions against the native ones (relative, norm-wise)."""
+    fns, params, ravel = opt.fns, opt.params, opt.ravel
+    x, y = batch
+    values = []
+    for enabled in (True, False):
+        torch.backends.cudnn.enabled = enabled
+        with precision_ctx(opt.config):
+            grad = value_and_grad(lambda p: fns.full_loss(p, batch),
+                                  params)[1]
+            mv = ggnvp(lambda p: fns.model_fn(p, x),
+                       lambda o: fns.loss_outer(o, y), params,
+                       ravel.unravel(v))
+        values.append((ravel.ravel(grad), ravel.ravel(mv)))
+    torch.backends.cudnn.enabled = True
+    (g, m), (g_native, m_native) = values
+    return [rel(g, g_native), rel(m, m_native)]
+
+
+def shard_f2(mesh, rank, rec):
+    """15 e) on one rank of a (data 2) mesh: fault F2's check, the GSPMD
+    names' reduced values against one process on the whole batch of 32, in
+    f32 and in f64, and in f32 with cuDNN off; on rank 0 also one process's
+    cuDNN-against-native distance on its 16 rows and on the 32."""
+    opt, batch, _ = resnet_main_path()
+    local = pmesh.shard_batch(batch, mesh)
+    v = torch.randn(opt.ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    args = (opt.fns, opt.config, opt.params, batch, local, mesh, v)
+    rec["e32"] = f2_values(*args, torch.float32)
+    rec["e64"] = f2_values(*args, torch.float64)
+    torch.backends.cudnn.enabled = False
+    rec["e32_native"] = f2_values(*args, torch.float32)
+    torch.backends.cudnn.enabled = True
+    if rank == 0:
+        rec["cudnn16"] = cudnn_vs_native(opt, local, v)
+        rec["cudnn32"] = cudnn_vs_native(opt, batch, v)
+
+
+def shard_rank(rank, world, port, out_path):
+    """One rank of 15 b) to e) (``chip_smoke.py --shard-rank``): gloo on
+    the card, a (data 1, model 2) mesh and, for e), a (data 2) mesh over
+    the same ranks; runs the parts in turn and writes its record."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize_distributed(f"localhost:{port}", world, rank,
+                                 backend="gloo", device="cuda:0")
+    mesh = pmesh.make_mesh(axis_names=("data", "model"), shape=(1, world))
+    data_mesh = pmesh.make_mesh()
+    rec = {"rank": rank}
+    for part, fn, on in (("b", shard_resnet, mesh), ("e", shard_f2, data_mesh),
+                         ("c", shard_decoder, mesh), ("d", shard_moe, mesh)):
+        t0 = time.perf_counter()
+        fn(on, rank, rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        rec[f"wall_{part}"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"rank {rank}/{world}: ok")
+
+
+def two_ranks():
+    """Run 15 b) to e) on two gloo ranks sharing the card; returns their
+    records and the wall time."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank",
+             str(r), "2", str(port), paths[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=900)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"rank {r}/2: ok" not in out:
+                raise AssertionError(f"15 b-e) rank {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        return [json.load(open(path)) for path in paths], wall
+
+
+def same_on_ranks(label, r0, r1, key):
+    for a, b in zip(r0[key], r1[key]):
+        if (a["iters"], a["params"]) != (b["iters"], b["params"]):
+            raise AssertionError(f"{label}: the ranks differ: {r0[key]} vs "
+                                 f"{r1[key]}")
+
+
+def launches_of(label, rec, key, steps):
+    iters = sum(s["iters"] for s in rec[steps])
+    if rec[key] != iters:
+        raise AssertionError(f"{label}: rank {rec['rank']}: {rec[key]} "
+                             f"launches for {iters} CG iterations")
+    return rec[key]
+
+
+def phase_shard_resnet(r0, r1):
+    wall = r0["wall_b"]
+    same_on_ranks("15 b)", r0, r1, "b_steps")
+    check_losses("15 b)", r0["b_steps"])
+    if r0["b_block"] != MAIN_N // 2:
+        raise AssertionError(f"15 b): CG block {r0['b_block']}")
+    if not max(r0["cg_rel"]) <= 1e-5:
+        raise AssertionError(f"15 b): the sharded fixed-length CG solve vs "
+                             f"one process's: x, m {r0['cg_rel']}")
+    launches = sum(launches_of("15 b)", r, "b_launches", "b_steps")
+                   for r in (r0, r1))
+    total, per_device = r0["b_est"]
+    measured = r0["b_ref_peak"] - r0["b_peak"]
+    iters = [s["iters"] for s in r0["b_steps"]]
+    per_iter = r0["gather_ms"] + 2 * r0["dot_ms"]
+    print(f"15 b) two gloo ranks sharing the card, (data 1, model 2) mesh "
+          f"({wall:.1f} s), ResNet-18/MNIST b32, 2 "
+          f"make_sharded_hf_step steps: K1 on {r0['b_block']:,} elements "
+          f"per rank; a {CG_CHECK_ITERS}-iteration CG solve (no stop) of "
+          f"the first step's system on the ranks' blocks vs one process: "
+          f"iterate {r0['cg_rel'][0]:.2e}, m-history {r0['cg_rel'][1]:.2e} "
+          f"(norm-wise, <= 1e-5); the steps' CG iterations {iters} against "
+          f"one process's first {r0['b_ref_steps'][0]['iters']}, the first "
+          f"step's parameters {r0['b_rel'][0]:.2e} and final loss "
+          f"{r0['b_loss_rel'][0]:.2e} from one process's hf_step (relative;"
+          f" no bound: f32 dots summed in two blocks can move Martens' "
+          f"stop by an iteration); losses "
+          f"{[(round(s['init'], 6), round(s['final'], 6)) for s in r0['b_steps']]}; "
+          f"replicas bitwise equal; step ms "
+          f"{[round(s['ms'], 1) for s in r0['b_steps']]} (rank 0) against "
+          f"one process's {r0['b_ref_steps'][0]['ms']:.1f}; "
+          f"peak requested bytes of the steps {gib(r0['b_peak']):.3f} GiB "
+          f"(rank 0), {gib(r1['b_peak']):.3f} GiB (rank 1), one process "
+          f"{gib(r0['b_ref_peak']):.3f} GiB: the difference "
+          f"{measured / 2**20:.1f} MiB against the estimate's "
+          f"total - per_device {(total - per_device) / 2**20:.1f} MiB "
+          f"(solver_memory_bytes: {total / 2**20:.1f} MiB on one device, "
+          f"{per_device / 2**20:.1f} MiB per rank of 2); gloo per CG "
+          f"iteration {per_iter:.1f} ms (a gather of the [{MAIN_N:,}] "
+          f"direction {r0['gather_ms']:.1f} ms + 2 scalar reductions "
+          f"{r0['dot_ms']:.3f} ms each, host clock, rank 0); "
+          f"fused_cg_update launches {r0['b_launches']} + {r1['b_launches']}"
+          f" = the ranks' CG iterations")
+    phase_f2(r0)
+    return launches
+
+
+def phase_shard_decoder(r0, r1):
+    wall = r0["wall_c"]
+    for key in ("cp_steps", "tp_steps"):
+        same_on_ranks("15 c)", r0, r1, key)
+        check_losses(f"15 c) {key}", r0[key])
+    same_on_ranks("15 c)", r0, r1, "plain_steps")
+    if not max(r0["cp_values_rel"]) <= 1e-5:
+        raise AssertionError(f"15 c): context-parallel loss, gradient, "
+                             f"matvec {r0['cp_values_rel']}")
+    if not max(r0["cp_cg"] + r0["tp_cg"]) <= 1e-5:
+        raise AssertionError(f"15 c): the fixed-length CG solves vs one "
+                             f"process's: x, m under CP {r0['cp_cg']}, "
+                             f"under Megatron specs {r0['tp_cg']}")
+    ref = r0["c_ref_steps"]
+    bounds = []
+    for key, rels in (("cp_steps", r0["cp_rel"]), ("tp_steps", r0["tp_rel"])):
+        # a first step at one process's CG iterations took the same
+        # decisions, so its parameters differ by rounding alone
+        same = r0[key][0]["iters"] == ref[0]["iters"]
+        if same and not rels[0] <= 1e-5:
+            raise AssertionError(f"15 c) {key}: the first step at one "
+                                 f"process's CG iterations lies {rels[0]} "
+                                 f"from its parameters")
+        bounds.append("<= 1e-5, the CG iterations agree" if same
+                      else "no bound: the CG iterations differ")
+    if not (r0["tp_equal"] and r1["tp_equal"]):
+        raise AssertionError("15 c): the Megatron step differs from the "
+                             "step with replicated weights")
+    launches = sum(launches_of("15 c)", r, "cp_launches", "cp_steps")
+                   + launches_of("15 c)", r, "tp_launches", "tp_steps")
+                   + launches_of("15 c)", r, "plain_launches", "plain_steps")
+                   for r in (r0, r1))
+    print(f"15 c) the same two ranks ({wall:.1f} s), the "
+          f"full-width decoder LM ({DENSE_LM_N:,} parameters, b32 x T128): "
+          f"context parallel (batch_specs=P(None, 'model'), 64 + 64 "
+          f"positions): loss, gradient, GGN matvec vs one process "
+          f"{r0['cp_values_rel'][0]:.2e}, {r0['cp_values_rel'][1]:.2e}, "
+          f"{r0['cp_values_rel'][2]:.2e} (relative, norm-wise, <= 1e-5); a "
+          f"{CG_CHECK_ITERS}-iteration CG solve (no stop) of the start's "
+          f"system on the ranks' blocks vs one process's: iterate "
+          f"{r0['cp_cg'][0]:.2e}, m-history {r0['cp_cg'][1]:.2e} under CP, "
+          f"{r0['tp_cg'][0]:.2e}, {r0['tp_cg'][1]:.2e} under the Megatron "
+          f"specs (norm-wise, <= 1e-5); 2 CP "
+          f"steps: CG iterations {[s['iters'] for s in r0['cp_steps']]} "
+          f"(one process's first {ref[0]['iters']}), the first step's "
+          f"parameters from one process's hf_step {r0['cp_rel'][0]:.2e} "
+          f"({bounds[0]}), losses "
+          f"{[(round(s['init'], 6), round(s['final'], 6)) for s in r0['cp_steps']]}; "
+          f"Megatron param_specs (qkv w block {r0['tp_block']} per rank) 1 "
+          f"step: {r0['tp_steps'][0]['iters']} CG iterations, bit for bit "
+          f"the step with replicated weights, parameters "
+          f"{r0['tp_rel'][0]:.2e} from one process's ({bounds[1]}); replicas "
+          f"bitwise equal; step ms CP "
+          f"{[round(s['ms'], 1) for s in r0['cp_steps']]}, TP "
+          f"{round(r0['tp_steps'][0]['ms'], 1)}, replicated "
+          f"{round(r0['plain_steps'][0]['ms'], 1)}, one process "
+          f"{ref[0]['ms']:.1f}; launches "
+          f"{launches} = the ranks' CG iterations")
+    return launches
+
+
+def phase_shard_moe(r0, r1):
+    wall = r0["wall_d"]
+    same_on_ranks("15 d)", r0, r1, "d_steps")
+    check_losses("15 d)", r0["d_steps"])
+    if not max(r0["d_rel"]) <= 1e-5:
+        raise AssertionError(f"15 d): loss, matvec {r0['d_rel']}")
+    launches = sum(launches_of("15 d)", r, "d_launches", "d_steps")
+                   for r in (r0, r1))
+    s = r0["d_steps"][0]
+    print(f"15 d) the same two ranks ({wall:.1f} s), the "
+          f"full-width MoE LM ({MOE_N:,} parameters) under moe_param_specs "
+          f"(w1 block {r0['d_block']}: 4 of 8 experts per rank): loss and "
+          f"one GGN matvec through the expert-parallel forward vs one "
+          f"process's {r0['d_rel'][0]:.2e}, {r0['d_rel'][1]:.2e} (relative,"
+          f" norm-wise, <= 1e-5); 1 step: loss {s['init']:.6f} -> "
+          f"{s['final']:.6f}, {s['iters']} CG iterations on both ranks, "
+          f"{s['ms']:.1f} ms, replicas bitwise equal; peak memory per rank "
+          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB (one "
+          f"process's: phase 11); launches {launches} = the ranks' CG "
+          f"iterations")
+    return launches
+
+
+def phase_f2(r0):
+    e32, e64, native = r0["e32"], r0["e64"], r0["e32_native"]
+    c16, c32 = r0["cudnn16"], r0["cudnn32"]
+    # with cuDNN, each rank convolves 16 rows and one process 32: the two
+    # differ by at most cuDNN's own error at those batch sizes (one
+    # process, cuDNN against the native convolutions) and the native gap
+    cudnn_bound = [10 * (a + b) + 1e-5 for a, b in zip(c16, c32)]
+    if not (max(e64) <= 1e-10 and max(native) <= 1e-5
+            and e32[0] <= 1e-5 and e32[1] <= cudnn_bound[0]
+            and e32[2] <= cudnn_bound[1]):
+        raise AssertionError(
+            f"15 e): the GSPMD names' values vs the whole batch: f64 {e64}, "
+            f"f32 without cuDNN {native}, f32 with cuDNN {e32} against "
+            f"{cudnn_bound} (cuDNN vs native, one process: batch 16 {c16}, "
+            f"batch 32 {c32})")
+    print(f"15 e) fault F2, the same two ranks as a (data 2) mesh "
+          f"({r0['wall_e']:.1f} s), "
+          f"ResNet-18/MNIST b32 as 2 x 16 under the GSPMD names (BatchNorm "
+          f"over both ranks' rows): reduced loss, gradient, GGN matvec vs "
+          f"one process on the whole batch of 32, relative, norm-wise: f64 "
+          f"{e64[0]:.2e}, {e64[1]:.2e}, {e64[2]:.2e} (<= 1e-10); f32 with "
+          f"cuDNN off {native[0]:.2e}, {native[1]:.2e}, {native[2]:.2e} (<= "
+          f"1e-5); f32 with cuDNN {e32[0]:.2e}, {e32[1]:.2e}, {e32[2]:.2e} "
+          f"(<= 1e-5, {cudnn_bound[0]:.2e}, {cudnn_bound[1]:.2e}: 10 x "
+          f"cuDNN's own distance from the native convolutions in one "
+          f"process, gradient and matvec, on rank 0's 16 rows "
+          f"{c16[0]:.2e}, {c16[1]:.2e} plus on the 32 {c32[0]:.2e}, "
+          f"{c32[1]:.2e}, + 1e-5); each rank's rows alone: phase 14 b")
+
+
+def phase_model_axis_examples():
+    """15 f): the three model-axis examples under torch.distributed.run,
+    two gloo ranks on the card; returns their launches."""
+    examples = Path(__file__).resolve().parent / "examples_torch"
+    runs = (("run_sharded.py", ["--tp"], "done."),
+            ("run_context_parallel.py", ["--tiny"],
+             "next-token loss down under sequence splitting; done."),
+            ("run_moe_lm.py", ["--ep", "--tiny"],
+             "next-token loss down through routed experts; done."))
+    # started at once (six ranks on the card): the times overlap; each
+    # writes to files, so that no full pipe stalls one while another is read
+    t0 = time.perf_counter()
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [(open(os.path.join(tmp, f"{i}.out"), "w+"),
+                  open(os.path.join(tmp, f"{i}.err"), "w+"))
+                 for i in range(len(runs))]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", script, *flags, "--backend", "gloo"],
+            cwd=examples, stdout=out, stderr=err, text=True)
+            for (script, flags, _), (out, err) in zip(runs, files)]
+        try:
+            for proc, (out, err) in zip(procs, files):
+                proc.wait(timeout=400)
+                out.seek(0)
+                err.seek(0)
+                results.append((proc.returncode, out.read(), err.read(),
+                                time.perf_counter() - t0))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for out, err in files:
+                out.close()
+                err.close()
+    launches = 0
+    for (script, flags, done), (returncode, out, err, wall) in zip(runs,
+                                                                   results):
+        if returncode != 0 or out.count(done) != 1:
+            raise AssertionError(f"{script} exited {returncode}:\n"
+                                 f"{out}\n{err[-4000:]}")
+        steps = [line for line in out.splitlines() if line.startswith("step ")]
+        if len(steps) != len(set(steps)):
+            raise AssertionError(f"{script}: more than one rank printed")
+        n = 0
+        for r in range(2):
+            line = out.split(f"rank {r}: fused_cg_update launches: ")[1]
+            count = int(line.split()[0])
+            iters = [int(i) for i in line.split("(CG iterations [")[1]
+                     .split("]")[0].split(",")]
+            if count != sum(iters):
+                raise AssertionError(f"{script} rank {r}: {count} launches "
+                                     f"for {iters}")
+            n += count
+        launches += n
+        print(f"15 f) {script} {' '.join(flags)} --backend gloo under "
+              f"torch.distributed.run --nproc-per-node 2 (the three started "
+              f"at once): exit 0 after {wall:.1f} s, {len(steps)} steps "
+              f"printed once (rank 0), "
+              f"launches {n} = both ranks' CG iterations")
+    return launches
+
+
+def phase_model_axis():
+    """Phase 15 (module docstring); returns the kernel launches."""
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    launches = phase_shard_nccl()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (r0, r1), wall = two_ranks()
+    print(f"15 b-e) two gloo ranks sharing the card: {wall:.1f} s with "
+          f"start-up")
+    launches += phase_shard_resnet(r0, r1)
+    launches += phase_shard_decoder(r0, r1)
+    launches += phase_shard_moe(r0, r1)
+    launches += phase_model_axis_examples()
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_data_parallel():
     """Phase 14 (module docstring); returns the kernel launches."""
     torch.backends.cudnn.deterministic = True
@@ -1687,24 +2431,41 @@ def main():
     _build.build("fused_cg_update.cu")
     _build.load("fused_cg_update.cu")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    if sys.argv[1:] == ["--phase", "14"]:
-        phase_data_parallel()
+    if sys.argv[1:2] == ["--phase"]:
+        {"3": phase_kernel, "14": phase_data_parallel,
+         "15": phase_model_axis}[sys.argv[2]]()
         return
+
+    clock = [time.perf_counter()]
+
+    def lap(phases):
+        now = time.perf_counter()
+        print(f"phases {phases}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     record = phase_kernel()
     phase_cg()
     phase_small_slice()
+    lap("3-5")
     launches = phase_main()
+    lap(6)
     phase_allcnnc_narrow()
     steps, acc_matvec_ms = phase_allcnnc()
     launches += steps
+    lap("7-8")
     phase_lm_narrow()
+    lap(9)
     launches += phase_decoder_lm()
+    lap(10)
     launches += phase_moe_lm()
+    lap(11)
     steps, store_peaks = phase_resnet_features()
     launches += steps
+    lap(12)
     launches += phase_front_door(acc_matvec_ms, store_peaks)
+    lap(13)
     launches += phase_data_parallel()
+    launches += phase_model_axis()
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",
@@ -1728,5 +2489,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                 sys.argv[5])
+    elif sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                   sys.argv[5])
     else:
         main()

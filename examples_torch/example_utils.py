@@ -201,3 +201,53 @@ def report(step_idx, opt):
         f"damping {h['dampings'][-1]:.4f} | cg {h['num_cg_iters'][-1]} iters "
         f"({h['cg_reasons'][-1]}) | best iter {h['best_cg_iters'][-1]}"
     )
+
+
+def start_ranks(device):
+    """Join the process group that ``torch.distributed.run`` describes
+    (``--backend gloo`` to let several ranks share one card; gloo on the
+    CPU, NCCL on the cards otherwise) and return ``(rank, world, the rank's
+    device, say)``, where ``say`` prints on rank 0 only."""
+    import torch.distributed as dist
+
+    from pytorchhessianfree_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        rank_device,
+    )
+
+    initialize_distributed(backend=flag_value("--backend"),
+                           device=device.type)
+    if not dist.is_initialized():
+        raise SystemExit(
+            "start the ranks with torch.distributed.run, e.g. python -m "
+            "torch.distributed.run --standalone --nproc-per-node 2 "
+            f"{os.path.basename(sys.argv[0])} --cpu"
+        )
+    rank = dist.get_rank()
+
+    def say(text):
+        if rank == 0:
+            print(text, flush=True)
+
+    return rank, dist.get_world_size(), rank_device(), say
+
+
+def report_launches(rank, world, iters, device, say):
+    """On the card: every rank's CUDA-kernel launches beside its CG
+    iterations, brought to rank 0 by one ``all_reduce`` and printed there
+    alone (the launcher merges the ranks' output streams, which may split
+    one rank's line with another's).  Nothing on the CPU."""
+    if device.type != "cuda":
+        return
+    import torch.distributed as dist
+
+    from pytorchhessianfree_tpu_torch import fused_cg_update
+
+    counts = torch.zeros(world, 1 + len(iters), dtype=torch.float64,
+                         device=device)
+    counts[rank] = torch.tensor([fused_cg_update.launches, *iters],
+                                dtype=torch.float64)
+    dist.all_reduce(counts)
+    for r, row in enumerate(counts.tolist()):
+        say(f"rank {r}: fused_cg_update launches: {int(row[0])} "
+            f"(CG iterations {[int(i) for i in row[1:]]})")

@@ -37,13 +37,6 @@ from typing import Optional
 import torch
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a feature of the JAX package not ported yet."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, queue 1, {item})."
-    )
-
-
 def float_dtype(name: str, what: str) -> torch.dtype:
     """The floating torch dtype called ``name`` (e.g. ``"bfloat16"``);
     ``what`` names the knob in the error."""

@@ -2,7 +2,8 @@
 
 The port keeps the JAX package's parameter layout (see
 :mod:`.models.resnet`), so carrying weights across is a structural copy.
-Both functions take numpy arrays (``np.asarray`` of the JAX values), which
+The functions take numpy arrays (``np.asarray`` of the JAX values), or for
+:func:`specs_from_jax` the JAX package's ``PartitionSpec`` trees, which
 keeps this package free of any JAX import.  They put the tensors on the
 card unless the caller passes another ``device`` (``device="cpu"``, as the
 parity tests do); without a card the default raises.
@@ -52,3 +53,22 @@ def state_from_jax(
         damping=torch.tensor(float(damping), dtype=x0.dtype, device=device),
         step_count=torch.tensor(int(step_count), device=device),
     )
+
+
+def specs_from_jax(tree: Any) -> Any:
+    """A JAX package ``param_specs`` / ``batch_specs`` tree -> the port's:
+    each ``jax.sharding.PartitionSpec`` (recognized by its type's name,
+    with no JAX import) becomes a
+    :class:`~.parallel.mesh.PartitionSpec` of the same fields; ``None``
+    stays ``None``; dicts, lists and tuples keep their structure."""
+    from .parallel.mesh import PartitionSpec
+
+    if tree is None:
+        return None
+    if type(tree).__name__ == "PartitionSpec":
+        return PartitionSpec(*tuple(tree))
+    if isinstance(tree, dict):
+        return {k: specs_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(specs_from_jax(v) for v in tree)
+    raise TypeError(f"not a spec tree: {tree!r}")

@@ -14,6 +14,13 @@ choice over capacity is dropped (the residual stream carries the token),
 top-2 gates are renormalized, a top-1 gate is the raw router probability.
 The Switch load-balance loss comes back with ``return_aux=True``.  The
 JAX package's ``vmap`` over router groups is a leading group axis here.
+
+Expert parallelism (:func:`moe_param_specs` through
+:mod:`~..parallel.sharded`, read from
+:func:`~..parallel.collectives.expert_axis`): the router and the dispatch
+stay replicated; each of the axis's ``M`` ranks runs the expert MLPs of
+its ``E / M`` experts on their slots only, and one ``all_reduce`` per
+layer sums the ranks' partial combines.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from ..config import not_ported
+from ..parallel import collectives
+from ..parallel.mesh import ExpertSpec, PartitionSpec as P
 from ..utils.remat import checkpoint
 from .transformer import (
     _attention_sublayer,
@@ -170,16 +178,25 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
     dispatch, combine, aux = _topk_dispatch(probs, capacity, top_k)
     aux = torch.mean(aux)
 
+    w1, b1, w2, b2 = blk["w1"], blk["b1"], blk["w2"], blk["b2"]
+    ep = collectives.expert_axis()
+    if ep is not None and ep.size > 1:  # this rank's experts only
+        if E % ep.size:
+            raise ValueError(
+                f"{E} experts do not divide over {ep.size} ranks")
+        lo, hi = ep.rank * E // ep.size, (ep.rank + 1) * E // ep.size
+        dispatch, combine = dispatch[..., lo:hi, :], combine[..., lo:hi, :]
+        w1, b1, w2, b2 = w1[lo:hi], b1[lo:hi], w2[lo:hi], b2[lo:hi]
+
     xe = torch.einsum("sgec,sgd->secd", dispatch, hg)
     h1 = F.gelu(
-        torch.einsum("secd,edf->secf", xe, blk["w1"])
-        + blk["b1"][None, :, None, :],
+        torch.einsum("secd,edf->secf", xe, w1) + b1[None, :, None, :],
         approximate="tanh",
     )
-    ye = torch.einsum("secf,efd->secd", h1, blk["w2"]) + (
-        blk["b2"][None, :, None, :]
-    )
+    ye = torch.einsum("secf,efd->secd", h1, w2) + b2[None, :, None, :]
     out = torch.einsum("sgec,secd->sgd", combine, ye)
+    if ep is not None:
+        out = collectives.all_reduce_sum(out, ep)
     return out.reshape(N, T, d), aux
 
 
@@ -216,6 +233,11 @@ def moe_decoder_lm_apply(
     ``attn_chunk`` and ``embed_onehot`` are as on
     :func:`~.transformer.decoder_lm_apply`."""
     del scan_layers  # layout knob of the JAX package
+    if collectives.sequence_axis() is not None:
+        raise ValueError(
+            "The MoE LM routes over all of a group's tokens; context "
+            "parallelism (a split sequence axis) is not supported for it."
+        )
     T = tokens.shape[1]
     x = _embed(params, tokens, embed_onehot) + params["pos"][:T]
     block = partial(
@@ -236,6 +258,23 @@ def moe_decoder_lm_apply(
 
 
 def moe_param_specs(n_layers: int):
-    """Expert-parallel sharding of the JAX package; waits for the parallel
-    layer."""
-    raise not_ported("moe_param_specs (expert-parallel sharding)", "item 20")
+    """Expert-parallel ``param_specs`` for
+    :func:`~..parallel.sharded.make_sharded_hf_step`: the expert axis of
+    every expert tensor splits over the ``model`` mesh axis; attention,
+    layernorms, the router gate and the embeddings stay replicated.  Under
+    these specs (:class:`~..parallel.mesh.ExpertSpec` marks the experts)
+    each rank keeps its experts' weights between steps and runs the MoE
+    feed-forward on its own experts (module docstring)."""
+    ep = {
+        "ln1": P(), "ln2": P(), "qkv": P(), "proj": P(), "gate": P(),
+        "w1": ExpertSpec("model", None, None),
+        "b1": ExpertSpec("model", None),
+        "w2": ExpertSpec("model", None, None),
+        "b2": ExpertSpec("model", None),
+    }
+    return {
+        "embed": P(),
+        "pos": P(),
+        "ln_f": P(),
+        "blocks": [dict(ep) for _ in range(n_layers)],
+    }

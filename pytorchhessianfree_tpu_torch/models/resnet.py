@@ -25,6 +25,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+
 _BN_EPS = 1e-5
 _STAGES = ((64, 1), (128, 2), (256, 2), (512, 2))  # (channels, first stride)
 
@@ -68,9 +70,13 @@ def _conv_init(generator, kh, kw, cin, cout, device, dtype):
 
 
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
-    """Pure batch-statistics normalization over (N, H, W) of NCHW."""
-    mean = torch.mean(x, dim=(0, 2, 3), keepdim=True)
-    var = torch.mean((x - mean) ** 2, dim=(0, 2, 3), keepdim=True)
+    """Pure batch-statistics normalization over (N, H, W) of NCHW.  Under a
+    data-parallel step with the JAX package's GSPMD semantics, the mean and
+    the mean of squared deviations are taken over every rank's rows
+    (:func:`~..parallel.collectives.batch_mean`), as one process would take
+    them over the whole batch."""
+    mean = collectives.batch_mean(x, (0, 2, 3))
+    var = collectives.batch_mean((x - mean) ** 2, (0, 2, 3))
     inv = torch.rsqrt(var + _BN_EPS)
     return (x - mean) * inv * scale[:, None, None] + bias[:, None, None]
 

@@ -19,6 +19,16 @@ PyTorch (two matmuls and a masked softmax), as JAX computes it outside any
 Pallas kernel; ``attn_chunk`` row-blocks it with each block rematerialized,
 so the ``[T, T]`` probabilities are never alive at once.
 
+Context parallelism (:mod:`~..parallel.sharded` with the tokens' sequence
+axis split over the model axis, read from
+:func:`~..parallel.collectives.sequence_axis`): each rank holds ``T / M``
+consecutive positions.  The decoder offsets its position embedding by
+``rank * T / M``, each attention gathers the keys and values of every
+position over the axis (:func:`~..parallel.collectives.all_gather`) and
+masks causally against global positions, and :func:`next_token_loss`
+scores the rank's positions against the next tokens, across the shard
+boundary, as its share of the mean over all ``N (T - 1)`` predictions.
+
 ``scan_layers`` is a layout knob of the JAX package (it stacks the blocks'
 weights for one ``lax.scan``); PyTorch loops over the blocks either way, with
 the same numbers, so it is accepted and otherwise ignored.  ``remat=True``
@@ -34,6 +44,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from ..utils.remat import checkpoint
 
 
@@ -142,11 +153,12 @@ def _attend(q, k, v, causal: bool, q_offset: int = 0):
     return attn @ v
 
 
-def _chunked_attention(q, k, v, causal: bool, chunk: int):
+def _chunked_attention(q, k, v, causal: bool, chunk: int, offset: int = 0):
     """Query-chunked attention: row blocks of the score matrix, each block
     rematerialized, so the [T, T] probabilities are never alive at once in
     the forward, backward or curvature passes.  The same numbers as full
-    attention (softmax rows are independent)."""
+    attention (softmax rows are independent).  ``offset`` is the global
+    position of q's first row."""
     T = q.shape[2]
     n_chunks, rem = divmod(T, chunk)
     if rem:
@@ -154,7 +166,8 @@ def _chunked_attention(q, k, v, causal: bool, chunk: int):
             f"attn_chunk={chunk} must divide the sequence length {T}"
         )
     outs = [
-        checkpoint(partial(_attend, causal=causal, q_offset=i * chunk))(
+        checkpoint(partial(_attend, causal=causal,
+                           q_offset=offset + i * chunk))(
             q[:, :, i * chunk:(i + 1) * chunk], k, v
         )
         for i in range(n_chunks)
@@ -176,10 +189,16 @@ def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
         return t.reshape(N, T, n_heads, d_head).permute(0, 2, 1, 3)
 
     q, k, v = heads(q), heads(k), heads(v)
+    seq = collectives.sequence_axis()
+    offset = 0
+    if seq is not None:  # context parallel: every position's keys
+        k = collectives.all_gather(k, seq, dim=2)
+        v = collectives.all_gather(v, seq, dim=2)
+        offset = seq.rank * T
     if attn_chunk is not None and attn_chunk < T:
-        out = _chunked_attention(q, k, v, causal, attn_chunk)
+        out = _chunked_attention(q, k, v, causal, attn_chunk, offset)
     else:
-        out = _attend(q, k, v, causal)
+        out = _attend(q, k, v, causal, offset)
     out = out.permute(0, 2, 1, 3).reshape(N, T, d_model)
     return x + _apply_dense(blk["proj"], out)
 
@@ -219,6 +238,11 @@ def transformer_apply(
     row-blocks the attention softmax (peak memory O(chunk x T) per layer
     instead of O(T^2), the same numbers); ``embed_onehot`` switches the
     embedding to the one-hot matmul."""
+    if collectives.sequence_axis() is not None:
+        raise ValueError(
+            "transformer_apply pools over the sequence; context parallelism "
+            "(a split sequence axis) is for the decoders."
+        )
     T = tokens.shape[1]
     x = _embed(params, tokens, embed_onehot) + params["pos"][:T]
     x = _run_blocks(
@@ -277,9 +301,9 @@ def decoder_lm_apply(
     """Causal forward pass.  ``tokens``: [N, T] integers -> [N, T, vocab]
     logits, position t predicting token t+1.  The knobs are those of
     :func:`transformer_apply`; with ``attn_chunk`` the causal mask is
-    applied per block against global positions."""
-    T = tokens.shape[1]
-    x = _embed(params, tokens, embed_onehot) + params["pos"][:T]
+    applied per block against global positions.  Under context
+    parallelism ``tokens`` are this rank's positions (module docstring)."""
+    x = _embed(params, tokens, embed_onehot) + _positions(params, tokens)
     x = _run_blocks(
         params["blocks"], x, n_heads, scan_layers, remat, causal=True,
         attn_chunk=attn_chunk,
@@ -288,6 +312,15 @@ def decoder_lm_apply(
     if "head" in params:
         return _apply_dense(params["head"], x)
     return x @ params["embed"].T
+
+
+def _positions(params, tokens):
+    """The position embeddings of ``tokens``' positions: ``[0, T)``, or
+    under context parallelism this rank's ``[rank T, (rank + 1) T)``."""
+    T = tokens.shape[1]
+    seq = collectives.sequence_axis()
+    start = 0 if seq is None else seq.rank * T
+    return params["pos"][start:start + T]
 
 
 def next_token_loss(
@@ -303,7 +336,15 @@ def next_token_loss(
     contraction instead of a gather (the same values).  ``mask``: optional
     [N, T] 0/1 weights over target positions (``mask[:, t]`` weights the
     prediction of token t); the mean is then ``sum(ll * m) / max(sum(m),
-    1)``.  Thread it through the batch so every phase of a step sees it."""
+    1)``.  Thread it through the batch so every phase of a step sees it.
+
+    Under context parallelism ``logits``, ``tokens`` and ``mask`` hold this
+    rank's positions: the rank scores them against the next tokens of the
+    whole sequence (gathered, no derivative) and returns its share, the
+    sum of its terms over the whole count; the shares sum to the mean."""
+    seq = collectives.sequence_axis()
+    if seq is not None and seq.size > 1:
+        return _next_token_share(logits, tokens, onehot, mask, seq)
     pred = logits[:, :-1, :]
     tgt = tokens[:, 1:]
     logp = torch.log_softmax(pred, dim=-1)
@@ -316,3 +357,27 @@ def next_token_loss(
         return -torch.mean(ll)
     m = mask[:, 1:].to(ll.dtype)
     return -torch.sum(ll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def _next_token_share(logits, tokens, onehot, mask, seq):
+    """:func:`next_token_loss`'s share on this rank's positions: position
+    ``t`` (global ``rank T + t``) predicts token ``rank T + t + 1`` of the
+    gathered sequence; the last global position predicts nothing."""
+    T = tokens.shape[1]
+    start = seq.rank * T
+    whole = collectives._gather(tokens.contiguous(), seq, 1)
+    # predictions with a next token: all but the global last position
+    stop = min(T, whole.shape[1] - 1 - start)
+    tgt = whole[:, start + 1:start + 1 + stop]
+    logp = torch.log_softmax(logits[:, :stop, :], dim=-1)
+    if onehot:
+        ll = torch.sum(logp * _one_hot(tgt, logits.shape[-1], logp.dtype),
+                       dim=-1)
+    else:
+        ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    if mask is None:
+        return -torch.sum(ll) / (tokens.shape[0] * (whole.shape[1] - 1))
+    m_whole = collectives._gather(mask.contiguous(), seq, 1)[:, 1:]
+    m = m_whole[:, start:start + stop].to(ll.dtype)
+    return -torch.sum(ll * m) / torch.clamp(
+        torch.sum(m_whole.to(ll.dtype)), min=1.0)

@@ -18,7 +18,16 @@ The loop is a Python loop.  Each iteration makes one curvature matvec, one
 ``p.Ap`` and one call of :func:`~.cg_update.fused_cg_update` (the iterate,
 residual, ``m`` and ``r.r`` in one pass).  ``alpha`` stays a device tensor;
 the termination test reads one integer back to the host per iteration, as
-the reference does.  Torch indexes in int64, so the JAX package's
+the reference does.
+
+On a mesh (:mod:`~..parallel.sharded`) each rank runs the same loop on its
+contiguous block of every vector: ``shard_vec`` is then the port's hook
+that keeps a rank's block of a vector, and ``shard_buf`` that of a
+``[rows, n]`` buffer.  A hook that carries ``dot`` and ``sum`` methods
+(:class:`~..parallel.sharded.ModelShard`) also reduces each dot product
+over the model axis, and the kernel's partial ``m`` and ``r.r`` together
+in one ``all_reduce`` of two values per iteration; every rank then reads
+the same reduced values and takes the same branches.  Torch indexes in int64, so the JAX package's
 flat/chunked buffer layout and its int32 guard are not needed: ``cg`` takes
 ``buffer_layout`` and ``store_mode`` as the documented no-ops that
 :class:`~..config.CGConfig` describes, and ``CGResult.x_buf_flat`` is a
@@ -121,6 +130,8 @@ def cg(
     store_dtype: Optional[str] = None,
     buffer_layout: str = "flat",
     store_mode: str = "cond",
+    shard_vec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    shard_buf: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> CGResult:
     """Preconditioned CG for ``A x = b`` with Hessian-free modifications.
 
@@ -142,6 +153,13 @@ def cg(
             buffer, validated and otherwise ignored (the iteration and the
             stored rows are the same for every value); ``"rows"`` leaves
             ``x_buf_flat`` ``None``, as in the JAX package.
+        shard_vec: hook applied to the ``[n]`` vectors entering and carried
+            through the loop (warm start, residual, direction, iterate).
+            The JAX package passes a sharding constraint; the port passes a
+            rank's block (module docstring), with ``b`` and the matvec
+            ``A`` then on blocks too.  Identity when ``None``.
+        shard_buf: the same for the ``[G, n]`` iterate buffer, which then
+            holds a rank's ``[G, n / ranks]`` block.
     """
     if nonpos_curv_option not in ("ignore", "saddle-free"):
         raise ValueError(f"Unknown option {nonpos_curv_option}.")
@@ -150,6 +168,13 @@ def cg(
     if store_mode not in ("scratch", "cond"):
         raise ValueError(f"Unknown store_mode {store_mode}")
 
+    sv = shard_vec if shard_vec is not None else (lambda v: v)
+    sb = shard_buf if shard_buf is not None else (lambda v: v)
+    # a rank's blocks: dots and the kernel's partial sums reduce
+    blocks = getattr(shard_vec, "dot", None) is not None
+    dot = shard_vec.dot if blocks else torch.dot
+
+    b = sv(b)
     n = b.shape[0]
     dtype, device = b.dtype, b.device
     max_iter = int(n if max_iter is None else max_iter)
@@ -163,26 +188,29 @@ def cg(
     G = len(stored_iters)
     slot_of_iter = {it: g for g, it in enumerate(stored_iters)}
 
-    x = torch.zeros_like(b) if x0 is None else x0.to(dtype).contiguous()
+    x = torch.zeros_like(b) if x0 is None else sv(x0.to(dtype)).contiguous()
 
-    res_bound = tol * torch.linalg.vector_norm(b)
+    if blocks:
+        res_bound = tol * torch.sqrt(dot(b, b))
+    else:
+        res_bound = tol * torch.linalg.vector_norm(b)
     if atol is not None:
         res_bound = torch.clamp(res_bound, min=atol)
 
     def apply_M(v):
         return M(v) if M is not None else v
 
-    r = A(x) - b
+    r = sv(A(x) - b)
     m_hist = torch.zeros(max_iter + 1, dtype=dtype, device=device)
-    m_hist[0] = 0.5 * torch.dot(r - b, x)
+    m_hist[0] = 0.5 * dot(r - b, x)
     y = apply_M(r)
-    ry = torch.dot(r, y)
-    p = -y
+    ry = dot(r, y)
+    p = sv(-y)
 
     sdtype = dtype if store_dtype is None else float_dtype(
         store_dtype, "store_dtype"
     )
-    x_buf = torch.zeros((max(G, 1), n), dtype=sdtype, device=device)
+    x_buf = sb(torch.zeros((max(G, 1), n), dtype=sdtype, device=device))
     if G and stored_iters[0] == 0:
         x_buf[0] = x
 
@@ -192,13 +220,16 @@ def cg(
     it = 1
     while True:
         Ap = A(p)
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         nonpos = nonpos | (pAp <= 0)
         if nonpos_curv_option == "saddle-free":
             pAp = pAp.abs()
         alpha = ry / pAp
 
         x, r, m, rr = fused_cg_update(x, r, p, Ap, b, alpha)
+        if blocks:
+            # the block's partial m and r.r, reduced together
+            m, rr = shard_vec.sum(torch.stack((m, rr))).unbind()
         res_norm = torch.sqrt(rr)
 
         if it in slot_of_iter:
@@ -232,9 +263,9 @@ def cg(
             y, ry_new = r, rr
         else:
             y = apply_M(r)
-            ry_new = torch.dot(r, y)
+            ry_new = dot(r, y)
         beta = ry_new / ry
-        p = -y + beta * p
+        p = sv(-y + beta * p)
         ry = ry_new
         it += 1
 

@@ -31,7 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import accumulate as acc
-from .config import HFConfig, float_dtype, not_ported, precision_ctx
+from .config import HFConfig, float_dtype, precision_ctx
 from .ops.cg import CG_REASON_STRINGS, cg
 from .ops.curvature import (
     ggn_matvec_fn,
@@ -54,6 +54,7 @@ from .ops.nystrom import (
 )
 from .ops.select import cg_efficient_backtracking, simple_linesearch
 from .ops.spectrum import normalized_probes, ritz, slq
+from .parallel import collectives
 from .utils.flatten import TrainableRavel, tree_flatten, tree_map
 from .utils.remat import checkpoint
 
@@ -173,10 +174,32 @@ def _step_core(
     mvp_vec: Callable[[torch.Tensor], torch.Tensor],
     loss_at: Callable[[torch.Tensor], torch.Tensor],
     M: Optional[Callable[[torch.Tensor], torch.Tensor]],
+    shard_vec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    shard_buf: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Any, HFState, HFStats]:
     """Solve, select and update on flat vectors, in the reference's phase
-    order.  ``loss_at(delta)`` is the loss at ``params + delta``."""
+    order.  ``loss_at(delta)`` is the loss at ``params + delta``.
+
+    With a hook that keeps a rank's block and can ``gather`` the blocks
+    back (:class:`~.parallel.sharded.ModelShard`), CG runs on the rank's
+    blocks of every vector and of the iterate grid (``ops.cg``): the
+    gradient enters as its block, each matvec gathers its direction,
+    applies ``mvp_vec`` to the whole vector and keeps its block, and every
+    trial loss gathers its step.  The chosen step is gathered once; the
+    line search and the update run on whole vectors, alike on every
+    rank."""
     damping = state.damping
+    sv = shard_vec if shard_vec is not None else (lambda v: v)
+    gather = getattr(shard_vec, "gather", None)
+    grad_full, loss_full = grad_vec, loss_at
+    if gather is not None:
+        whole_mvp = mvp_vec
+
+        def mvp_vec(v):
+            return sv(whole_mvp(gather(v)))
+
+        loss_at = _gathered(loss_at, gather)
+    grad_vec = sv(grad_vec)
 
     def A(v):
         return mvp_vec(v) + damping * v
@@ -201,6 +224,10 @@ def _step_core(
         martens_min_window=config.cg.martens_min_window,
         nonpos_curv_option=config.cg.nonpos_curv_option,
         store_dtype=config.cg.store_dtype,
+        buffer_layout=config.cg.buffer_layout,
+        store_mode=config.cg.store_mode,
+        shard_vec=shard_vec,
+        shard_buf=shard_buf,
     )
 
     # warm start for the next step: the decayed FINAL iterate
@@ -225,10 +252,12 @@ def _step_core(
             # the final iterate's slot, as the JAX package records it
             bt_f = torch.cat([nan.expand(G1 - 1), f_at_final[None]])
 
+    if gather is not None:
+        step_vec = gather(step_vec)
     if config.use_linesearch:
         ls = simple_linesearch(
-            loss_at,
-            grad_vec,
+            loss_full,
+            grad_full,
             step_vec,
             f_0=init_loss,
             init_alpha=config.lr,
@@ -244,7 +273,7 @@ def _step_core(
     else:
         lr = grad_vec.new_tensor(config.lr)
         final_loss = (
-            loss_at(lr * step_vec) if config.compute_final_loss else nan
+            loss_full(lr * step_vec) if config.compute_final_loss else nan
         )
         ls_failed, not_descent = False, False
 
@@ -292,6 +321,25 @@ def _step_core(
         detail=detail,
     )
     return new_params, new_state, stats
+
+
+def _gathered(loss_at, gather):
+    """``loss_at`` of whole steps as a function of a rank's blocks: each
+    trial gathers its step, and a batched sweep gathers its rows."""
+
+    def at(delta):
+        return loss_at(gather(delta))
+
+    whole_sweep = getattr(loss_at, "sweep", None)
+
+    def sweep(deltas):
+        deltas = gather(deltas)
+        if whole_sweep is None:
+            return torch.func.vmap(loss_at)(deltas)
+        return whole_sweep(deltas)
+
+    at.sweep = sweep
+    return at
 
 
 def _maybe_remat(fns: HFModelFns, config: HFConfig) -> HFModelFns:
@@ -471,6 +519,8 @@ def hf_step(
     M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     grad_vec: Optional[torch.Tensor] = None,
     mvp_vec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    shard_vec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    shard_buf: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Any, HFState, HFStats]:
     """One Hessian-free update (reference optimizer.py:126-363).
 
@@ -484,20 +534,22 @@ def hf_step(
     Custom
     ``grad_vec`` / ``mvp_vec`` override the derived gradient and curvature
     matvec.  ``config.matmul_precision`` sets the TF32 switches for the
-    whole step.
+    whole step.  ``shard_vec`` / ``shard_buf``: the hooks that
+    :mod:`.parallel.sharded` passes to run CG on a rank's blocks
+    (:func:`_step_core`); ``state.x0`` is then the rank's block.
     """
     return _hf_step(
         params, state, batch, fns=fns, config=config, ravel=ravel,
         precond_diag=precond_diag, precond_exponent=precond_exponent,
         precond_lowrank=precond_lowrank, M=M, grad_vec=grad_vec,
-        mvp_vec=mvp_vec,
+        mvp_vec=mvp_vec, shard_vec=shard_vec, shard_buf=shard_buf,
     )
 
 
 def _hf_step(
     params, state, batch, *, fns, config, ravel, precond_diag=None,
     precond_exponent=0.75, precond_lowrank=None, M=None, grad_vec=None,
-    mvp_vec=None, reduce=None,
+    mvp_vec=None, reduce=None, shard_vec=None, shard_buf=None,
 ):
     """:func:`hf_step`; with ``reduce``, each rank's data term of the loss,
     the gradient, the matvec, the trial losses and an in-step diagonal is
@@ -507,9 +559,10 @@ def _hf_step(
             fns, config, ravel, params, batch, reduce
         )
 
+        sv = shard_vec if shard_vec is not None else (lambda v: v)
         if M is None and precond_diag is not None:
             M = diag_to_preconditioner(
-                precond_diag, state.damping, precond_exponent
+                sv(precond_diag), state.damping, precond_exponent
             )
         elif M is None and precond_lowrank is not None:
             M = nystrom_to_preconditioner(precond_lowrank, state.damping)
@@ -523,7 +576,7 @@ def _hf_step(
             diag = _diag(fns, params, inputs, targets,
                          config.precond_reduction, ravel, reduce)
             M = diag_to_preconditioner(
-                diag, state.damping, config.precond_exponent
+                sv(diag), state.damping, config.precond_exponent
             )
 
         data_fns, reg = _split_reg(fns, reduce)
@@ -538,6 +591,8 @@ def _hf_step(
             loss_at=_loss_at(lambda p: data_fns.full_loss(p, batch), reg,
                              ravel, params, reduce),
             M=M,
+            shard_vec=shard_vec,
+            shard_buf=shard_buf,
         )
 
 
@@ -579,14 +634,18 @@ def _diag(fns, params, inputs, targets, reduction, ravel, reduce=None,
     """The empirical-Fisher diagonal through ``diag`` (``diag_EF`` or
     ``diag_EF_scan``).  With ``reduce``, of every rank's rows (equal
     shares): each rank sums its rows' squares, ``reduce.sum`` adds the
-    partial sums, and ``"mean"`` divides by the global row count."""
+    partial sums, and ``"mean"`` divides by the global row count.  Each
+    per-sample gradient sees its sample alone, with no batch statistics
+    across the ranks (:func:`~.parallel.collectives.local_batch`), as a
+    ``vmap`` over samples gives each a batch of one in the JAX package."""
     if reduce is None:
         return diag(fns.model_fn, fns.loss_outer, params, inputs, targets,
                     reduction, ravel, loss_reg=fns.loss_reg)
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction {reduction} is not supported.")
-    d = reduce.sum(diag(fns.model_fn, fns.loss_outer, params, inputs,
-                        targets, "sum", ravel, loss_reg=fns.loss_reg))
+    with collectives.local_batch():
+        d = reduce.sum(diag(fns.model_fn, fns.loss_outer, params, inputs,
+                            targets, "sum", ravel, loss_reg=fns.loss_reg))
     if reduction == "mean":
         d = d / (tree_flatten(inputs)[0][0].shape[0] * reduce.size)
     return d
@@ -734,6 +793,8 @@ def hf_acc_step(
     precond_diag: Optional[torch.Tensor] = None,
     precond_exponent: float = 0.75,
     mvp_amortize: bool = False,
+    shard_vec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    shard_buf: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Any, HFState, HFStats]:
     """Accumulated Hessian-free update (reference optimizer.py:519-606).
 
@@ -746,20 +807,23 @@ def hf_acc_step(
     whole step.  ``config.remat`` checkpoints the model forward (resp.
     ``loss_fn``) for every evaluation of the step; ``config.curvature_dtype``
     is ignored here, as in the JAX package: the accumulated matvec runs in
-    the parameter dtype.
+    the parameter dtype.  ``shard_vec`` / ``shard_buf`` are
+    :func:`hf_step`'s.
     """
     return _hf_acc_step(
         params, state, fns=fns, config=config, ravel=ravel,
         loss_data=loss_data, grad_data=grad_data, mvp_data=mvp_data,
         reduction=reduction, M=M, precond_diag=precond_diag,
         precond_exponent=precond_exponent, mvp_amortize=mvp_amortize,
+        shard_vec=shard_vec, shard_buf=shard_buf,
     )
 
 
 def _hf_acc_step(params, state, *, fns, config, ravel, loss_data,
                  grad_data=None, mvp_data=None, reduction="mean", M=None,
                  precond_diag=None, precond_exponent=0.75,
-                 mvp_amortize=False, reduce=None):
+                 mvp_amortize=False, reduce=None, shard_vec=None,
+                 shard_buf=None):
     """:func:`hf_acc_step`; with ``reduce``, each rank accumulates its
     chunks, and one reduction follows each chunk sum (loss, gradient,
     every matvec, the trial losses), as in :func:`_hf_step`."""
@@ -780,6 +844,8 @@ def _hf_acc_step(params, state, *, fns, config, ravel, loss_data,
             reduction, mvp_amortize, reduce,
         )
         if M is None and precond_diag is not None:
+            if shard_vec is not None:
+                precond_diag = shard_vec(precond_diag)
             M = diag_to_preconditioner(
                 precond_diag, state.damping, precond_exponent
             )
@@ -794,6 +860,8 @@ def _hf_acc_step(params, state, *, fns, config, ravel, loss_data,
             mvp_vec=mvp_vec,
             loss_at=loss_at,
             M=M,
+            shard_vec=shard_vec,
+            shard_buf=shard_buf,
         )
 
 
@@ -1058,12 +1126,21 @@ class HessianFree:
             ``"sum"``, which the JAX package's GSPMD step derives from the
             loss) is read from the loss on the first batch; a loss that is
             neither raises.  A model whose forward couples the rows
-            (BatchNorm's batch statistics) sees each rank's rows alone
-            (ROADMAP.md, fault F2).  A ``model_axis`` (solver-state
-            sharding) is not ported yet.
+            (BatchNorm's batch statistics) takes them over every rank's
+            rows, as the JAX package's GSPMD step does.  With a
+            ``model_axis`` in the mesh, the steps split the solver state
+            over it (:mod:`.parallel.sharded`): :attr:`params` stay whole
+            on every rank, ``state.x0`` is the rank's block, and each rank
+            passes the WHOLE batch, which the step cuts per
+            ``batch_specs`` (rows over ``data_axis`` by default).
         data_axis / model_axis: the mesh's axis names.
-        param_specs / batch_specs: tensor and context parallelism; not
-            ported yet (ROADMAP.md, queue 1, item 20c).
+        param_specs: tree prefix of :class:`~.parallel.mesh.PartitionSpec`
+            splitting the weights over the mesh (tensor and expert
+            parallelism); needs a mesh with a model axis.
+        batch_specs: tree prefix of specs placing the batch per leaf
+            (context parallelism: tokens ``[N, T]`` under
+            ``PartitionSpec(None, "model")``); needs a mesh with a model
+            axis.
 
     :meth:`save` and :meth:`load` checkpoint the parameters, the optimizer
     state and the history (:mod:`.checkpoint`).
@@ -1090,19 +1167,28 @@ class HessianFree:
             config = HFConfig(**config_kwargs)
         elif config_kwargs:
             raise ValueError("Pass either config or keyword args, not both.")
-        if param_specs is not None or batch_specs is not None:
-            raise not_ported("param_specs= / batch_specs=", "item 20c")
-        if mesh is not None:
+        specs = param_specs is not None or batch_specs is not None
+        self._sharded = False
+        if mesh is None:
+            if specs:
+                raise ValueError("param_specs/batch_specs require mesh.")
+        else:
             names = mesh.mesh_dim_names or ()
-            if model_axis in names:
-                raise not_ported("HessianFree(mesh=) with a model axis",
-                                 "item 20c")
-            if data_axis not in names:
+            self._sharded = model_axis in names
+            if specs and not self._sharded:
+                raise ValueError(
+                    "param_specs/batch_specs require a mesh with a "
+                    f"{model_axis!r} axis."
+                )
+            if not self._sharded and data_axis not in names:
                 raise ValueError(
                     f"mesh has no {data_axis!r} axis (axes {names})"
                 )
         self.mesh = mesh
         self._data_axis = data_axis
+        self._model_axis = model_axis
+        self._param_specs = param_specs
+        self._batch_specs = batch_specs
         self._dp_reduction = None
         self.config = config
         self.fns = HFModelFns(
@@ -1119,7 +1205,9 @@ class HessianFree:
         if mesh is not None:
             from .parallel.data_parallel import _broadcast_replicas
 
-            _broadcast_replicas(self.params, mesh, data_axis)
+            for axis in (data_axis, model_axis):
+                if axis in (mesh.mesh_dim_names or ()):
+                    _broadcast_replicas(self.params, mesh, axis)
         self.ravel = TrainableRavel(
             self.params, trainable, pad_to_multiple=pad_to_multiple
         )
@@ -1154,7 +1242,18 @@ class HessianFree:
     def _loss_reduction(self, batch) -> str:
         """The loss's reduction for the data-parallel steps, read from the
         first batch (:func:`.parallel.data_parallel._loss_reduction`) and
-        kept."""
+        kept.  A sharded step reduces over the data axis only when it
+        splits the rows: with no data axis, or ``batch_specs``, the
+        reduction is the default ``"mean"``, which no reduction reads."""
+        if self._sharded and (
+            self._batch_specs is not None
+            or self._data_axis not in (self.mesh.mesh_dim_names or ())
+        ):
+            return "mean"
+        if self._sharded:
+            from .parallel.mesh import shard_batch
+
+            batch = shard_batch(batch, self.mesh, self._data_axis)
         if self._dp_reduction is None:
             from .parallel.data_parallel import _loss_reduction
 
@@ -1242,17 +1341,27 @@ class HessianFree:
                     "Custom M/grad/mvp closures are not supported with "
                     "mesh=; use the functional hf_step instead."
                 )
-            from .parallel.data_parallel import make_dp_hf_step
+            if self._sharded:
+                from .parallel.sharded import make_sharded_hf_step
 
-            step = make_dp_hf_step(
-                self.fns, self.config, self.ravel, self.mesh,
-                axis_name=self._data_axis,
-                precond_exponent=self.config.precond_exponent,
-                reduction=self._loss_reduction(batch),
-            )
-            self.params, self.state, stats = step(
+                step = make_sharded_hf_step(
+                    self.fns, self.config, self.ravel, self.mesh,
+                    **self._sharded_kwargs(batch),
+                    precond_exponent=self.config.precond_exponent,
+                )
+            else:
+                from .parallel.data_parallel import make_dp_hf_step
+
+                step = make_dp_hf_step(
+                    self.fns, self.config, self.ravel, self.mesh,
+                    axis_name=self._data_axis,
+                    precond_exponent=self.config.precond_exponent,
+                    reduction=self._loss_reduction(batch),
+                )
+            params, self.state, stats = step(
                 self.params, self.state, batch, precond_diag
             )
+            self.params = self._whole(params)
             return self._record(stats)
         self.params, self.state, stats = hf_step(
             self.params, self.state, batch, fns=self.fns, config=self.config,
@@ -1262,6 +1371,27 @@ class HessianFree:
             mvp_vec=mvp,
         )
         return self._record(stats)
+
+    def _sharded_kwargs(self, batch) -> dict:
+        """The keywords of a :mod:`.parallel.sharded` builder."""
+        data = self._data_axis
+        if data not in (self.mesh.mesh_dim_names or ()):
+            data = None
+        return dict(data_axis=data, model_axis=self._model_axis,
+                    param_specs=self._param_specs,
+                    batch_specs=self._batch_specs,
+                    reduction="mean" if batch is None
+                    else self._loss_reduction(batch))
+
+    def _whole(self, params):
+        """Parameters as a sharded step returned them -> whole on every
+        rank (the wrapper keeps them whole)."""
+        if not self._sharded or self._param_specs is None:
+            return params
+        from .parallel.sharded import unshard_params
+
+        return unshard_params(params, self._param_specs, self.mesh,
+                              self.ravel)
 
     def _warn_if_nondeterministic(self, batch) -> None:
         res = self.test_deterministic(batch)
@@ -1294,17 +1424,29 @@ class HessianFree:
                     "use hf_acc_step / parallel.* builders for independent "
                     "grad/mvp datalists."
                 )
-            from .parallel.data_parallel import make_dp_hf_acc_step
+            if self._sharded:
+                from .parallel.sharded import make_sharded_hf_acc_step
 
-            step = make_dp_hf_acc_step(
-                self.fns, self.config, self.ravel, self.mesh,
-                axis_name=self._data_axis, reduction=reduction,
-                precond_exponent=self.config.precond_exponent,
-                mvp_amortize=mvp_amortize,
-            )
-            self.params, self.state, stats = step(
+                kwargs = self._sharded_kwargs(None)
+                kwargs["reduction"] = reduction
+                step = make_sharded_hf_acc_step(
+                    self.fns, self.config, self.ravel, self.mesh, **kwargs,
+                    precond_exponent=self.config.precond_exponent,
+                    mvp_amortize=mvp_amortize,
+                )
+            else:
+                from .parallel.data_parallel import make_dp_hf_acc_step
+
+                step = make_dp_hf_acc_step(
+                    self.fns, self.config, self.ravel, self.mesh,
+                    axis_name=self._data_axis, reduction=reduction,
+                    precond_exponent=self.config.precond_exponent,
+                    mvp_amortize=mvp_amortize,
+                )
+            params, self.state, stats = step(
                 self.params, self.state, loss_data, precond_diag=precond_diag
             )
+            self.params = self._whole(params)
             return self._record(stats)
         self.params, self.state, stats = hf_acc_step(
             self.params, self.state, fns=self.fns, config=self.config,
@@ -1325,7 +1467,16 @@ class HessianFree:
         per decay value (switching decays does not continue another decay's
         average).  With ``mesh=``, ``batches`` holds this rank's rows of
         each step's batch (leaves ``[T, N / ranks, ...]``)."""
-        if self.mesh is not None:
+        if self.mesh is not None and self._sharded:
+            from .parallel.sharded import make_sharded_hf_train_loop
+
+            loop = make_sharded_hf_train_loop(
+                self.fns, self.config, self.ravel, self.mesh,
+                **self._sharded_kwargs(tree_map(lambda a: a[0], batches)),
+                precond_exponent=self.config.precond_exponent,
+                precond_ema_decay=precond_ema_decay,
+            )
+        elif self.mesh is not None:
             from .parallel.data_parallel import make_dp_hf_train_loop
 
             loop = make_dp_hf_train_loop(
@@ -1352,6 +1503,7 @@ class HessianFree:
                 self._ema_states.get(precond_ema_decay),
             )
             self._ema_states[precond_ema_decay] = ema
+        self.params = self._whole(self.params)
         for i in range(stats.init_loss.shape[0]):
             self._append_history(stats, i)
         self.last_stats = stats
@@ -1370,11 +1522,20 @@ class HessianFree:
         damping.  (The reference's method of this name returns ``None``;
         this one returns the diagonal, as the JAX package's does.)  With
         ``mesh=``, ``inputs`` and ``targets`` are this rank's rows and the
-        ranks' partial sums are reduced (``parallel.dp_diag_EF``)."""
+        ranks' partial sums are reduced (``parallel.dp_diag_EF``); with a
+        model axis, ``inputs`` and ``targets`` are the whole batch, whose
+        rows the data axis splits, and the diagonal is whole on every
+        rank."""
         fn = diag_EF_scan if use_scan else diag_EF
         with precision_ctx(self.config):
             reduce = None
-            if self.mesh is not None:
+            names = self.mesh.mesh_dim_names or () if self.mesh else ()
+            if self._sharded and self._data_axis in names:
+                from .parallel.mesh import shard_batch
+
+                inputs, targets = shard_batch((inputs, targets), self.mesh,
+                                              self._data_axis)
+            if self.mesh is not None and self._data_axis in names:
                 from .parallel.data_parallel import _Reduce
 
                 reduce = _Reduce(self.mesh, self._data_axis, "sum")

@@ -18,11 +18,13 @@ on every rank (``optimizer._step_core``).
 
 Three rules keep this correct:
 
-- **No collective inside a transform.**  Each reduction is linear, so it
+- **The reductions run outside the transforms.**  Each is linear, so it
   runs on a transform's output: the matvec's flat output after the
   ``linearize`` replay, the summed squares after ``diag_EF``'s ``vmap``,
   and the vector of trial losses after a batched sweep's ``vmap`` (the
-  ``sweep`` hook of :mod:`~..ops.select`).
+  ``sweep`` hook of :mod:`~..ops.select`).  The only collectives inside a
+  transform are a forward's own (batch statistics, below), through
+  :mod:`.collectives`.
 - **The regularizer counts once.**  ``loss_reg`` depends only on the
   replicated parameters, so the ranks' data terms are reduced first and the
   regularizer is added after, as the JAX package combines only the data
@@ -37,18 +39,27 @@ Only ``all_reduce`` and ``broadcast`` are used: gloo, which lets several
 ranks share one card, takes CUDA tensors for these two only.
 
 A model whose forward couples the rows of a batch, such as ResNet-18's
-BatchNorm with batch statistics, sees only its rank's rows: each rank
-normalizes its shard by the shard's statistics.  That is the JAX package's
-``shard_map`` semantics, and here the GSPMD names follow it too, where the
-JAX package's GSPMD step computes the statistics over the global batch
-(ROADMAP.md, fault F2).  For such a model the step is one process's
-accumulated step over the shards as chunks, not the whole batch's step.
+BatchNorm with batch statistics, is where the two families of builders
+differ, as they do in the JAX package:
 
-The JAX package's GSPMD builders (:func:`make_dp_hf_step`,
-:func:`make_dp_hf_acc_step`) and its explicit ``shard_map`` builders
-(:func:`make_dp_hf_step_shardmap`, :func:`make_dp_hf_acc_step_shardmap`)
-are one mechanism here and give the same numbers: ``optimizer``'s steps
-with a ``reduce`` over the axis.  GSPMD derives the reduction from the
+- the GSPMD names (:func:`make_dp_hf_step`, :func:`make_dp_hf_train_loop`,
+  :func:`make_dp_hf_acc_step`, and ``HessianFree(mesh=)`` over them) run
+  the forward with the data axis as its batch axis
+  (:func:`~.collectives.axes`): ``models.resnet.batchnorm`` takes the mean
+  and the mean of squared deviations over every rank's rows with
+  :func:`~.collectives.all_reduce_sum` inside the transforms, so the step
+  is the whole batch's step, as GSPMD's is.  Per-sample gradients
+  (``dp_diag_EF``, the EMA diagonals) see each sample alone, as in the JAX
+  package;
+- the ``shard_map`` names (:func:`make_dp_hf_step_shardmap`,
+  :func:`make_dp_hf_acc_step_shardmap`) set no batch axis: each rank
+  normalizes its shard by the shard's statistics, as JAX's ``shard_map``
+  step does, and the step is one process's accumulated step over the
+  shards as chunks.
+
+For a model whose rows do not couple, both families are one mechanism and
+give the same numbers: ``optimizer``'s steps with a ``reduce`` over the
+axis.  GSPMD derives the reduction from the
 loss; the port cannot, so the GSPMD names take ``reduction="mean"`` as a
 keyword (``HessianFree(mesh=)`` reads it from the loss,
 :func:`_loss_reduction`).  Every step takes this rank's rows of the batch
@@ -64,6 +75,7 @@ import torch.distributed as dist
 
 from .. import accumulate as acc
 from ..config import HFConfig
+from . import collectives
 from ..optimizer import (
     HFModelFns,
     _diag,
@@ -166,7 +178,28 @@ def make_dp_hf_step(
     -> (params, state, stats)`` with ``batch`` this rank's rows and the
     parameters, state and ``precond_diag`` replicated.  ``reduction``
     (``"mean"`` or ``"sum"``) is the loss's own; ``donate`` is accepted and
-    ignored, as in ``optimizer.make_hf_step``."""
+    ignored, as in ``optimizer.make_hf_step``.  Batch statistics are the
+    whole batch's (module docstring)."""
+    return _dp_step(fns, config, ravel, mesh, axis_name, precond_exponent,
+                    reduction, batch_stats=True)
+
+
+def _synced(fn, mesh, axis_name: str, batch_stats: bool):
+    """``fn`` run with the data axis as the forward's batch axis when
+    ``batch_stats`` (the GSPMD names), as it is otherwise."""
+    if not batch_stats:
+        return fn
+    axis = collectives.mesh_axis(mesh, axis_name)
+
+    def synced(*args, **kwargs):
+        with collectives.axes(batch=axis):
+            return fn(*args, **kwargs)
+
+    return synced
+
+
+def _dp_step(fns, config, ravel, mesh, axis_name, precond_exponent,
+             reduction, batch_stats):
     reduce = _Reduce(mesh, axis_name, reduction)
 
     def step(params, state, batch, precond_diag=None):
@@ -177,7 +210,7 @@ def make_dp_hf_step(
             precond_exponent=precond_exponent, reduce=reduce,
         )
 
-    return step
+    return _synced(step, mesh, axis_name, batch_stats)
 
 
 def make_dp_hf_step_shardmap(
@@ -189,12 +222,10 @@ def make_dp_hf_step_shardmap(
     reduction: str = "mean",
     precond_exponent: float = 0.75,
 ):
-    """The JAX package's explicit ``shard_map`` step; here the same step as
-    :func:`make_dp_hf_step`, with the same numbers."""
-    return make_dp_hf_step(
-        fns, config, ravel, mesh, axis_name=axis_name,
-        precond_exponent=precond_exponent, reduction=reduction,
-    )
+    """The JAX package's explicit ``shard_map`` step: :func:`make_dp_hf_step`
+    with each rank's batch statistics its own rows' (module docstring)."""
+    return _dp_step(fns, config, ravel, mesh, axis_name, precond_exponent,
+                    reduction, batch_stats=False)
 
 
 def make_dp_hf_train_loop(
@@ -213,9 +244,10 @@ def make_dp_hf_train_loop(
     rows of every step's batch) and every step a :func:`make_dp_hf_step`
     step.  With ``precond_ema_decay``, each step's diagonal is
     :func:`dp_diag_EF`'s, so the EMA stays replicated."""
-    return _train_loop(fns, config, ravel, precond_exponent,
-                       precond_ema_decay,
-                       _Reduce(mesh, axis_name, reduction))
+    return _synced(
+        _train_loop(fns, config, ravel, precond_exponent, precond_ema_decay,
+                    _Reduce(mesh, axis_name, reduction)),
+        mesh, axis_name, batch_stats=True)
 
 
 def make_dp_hf_acc_step(
@@ -233,7 +265,14 @@ def make_dp_hf_acc_step(
     rank's rows (``(xs [C, N / ranks, ...], ys [C, N / ranks, ...])``).
     Each rank accumulates its chunks as ``optimizer.hf_acc_step`` does,
     and one reduction follows the chunk sum: one param-sized ``all_reduce``
-    per matvec, not one per chunk."""
+    per matvec, not one per chunk.  Batch statistics are each chunk's
+    over every rank's rows (module docstring)."""
+    return _dp_acc_step(fns, config, ravel, mesh, axis_name, reduction,
+                        precond_exponent, mvp_amortize, batch_stats=True)
+
+
+def _dp_acc_step(fns, config, ravel, mesh, axis_name, reduction,
+                 precond_exponent, mvp_amortize, batch_stats):
     reduce = _Reduce(mesh, axis_name, reduction)
 
     def step(params, state, loss_data, precond_diag=None):
@@ -252,7 +291,7 @@ def make_dp_hf_acc_step(
             reduce=reduce,
         )
 
-    return step
+    return _synced(step, mesh, axis_name, batch_stats)
 
 
 def make_dp_hf_acc_step_shardmap(
@@ -263,10 +302,11 @@ def make_dp_hf_acc_step_shardmap(
     axis_name: str = "data",
     reduction: str = "mean",
 ):
-    """The JAX package's explicit ``shard_map`` accumulated step; here the
-    same step as :func:`make_dp_hf_acc_step`, with the same numbers."""
-    return make_dp_hf_acc_step(fns, config, ravel, mesh, axis_name=axis_name,
-                               reduction=reduction)
+    """The JAX package's explicit ``shard_map`` accumulated step:
+    :func:`make_dp_hf_acc_step` with each rank's batch statistics its own
+    rows' (module docstring)."""
+    return _dp_acc_step(fns, config, ravel, mesh, axis_name, reduction,
+                        0.75, False, batch_stats=False)
 
 
 def dp_diag_EF(

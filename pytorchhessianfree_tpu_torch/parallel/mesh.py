@@ -15,6 +15,15 @@ Batches stay plain tensors: ``torch.func``'s ``linearize``, ``jvp`` and
 the port's form of a ``NamedSharding``: the mesh, the axis and the split
 dimension, which :func:`shard_batch` and
 :class:`~..runtime.prefetch.DevicePrefetcher` read.
+
+Beyond the batch, a :class:`PartitionSpec` places one tensor on the mesh
+with the JAX package's field semantics, one entry per leading dimension:
+``None`` (not split), an axis name, or a tuple of names (split over their
+product, the first name outermost); an :class:`ExpertSpec` also marks the
+experts of a MoE layer.  :func:`shard_leaf` cuts this rank's
+block of a tensor and :func:`unshard_leaf` joins the ranks' blocks again;
+:func:`model_axis` gives the group and rank along the solver's model axis
+(:mod:`.sharded`).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..utils.flatten import tree_map
-from . import distributed
+from . import collectives, distributed
 
 
 def balanced_mesh_shape(n: int, k: int) -> tuple:
@@ -151,3 +160,75 @@ def shard_batch(batch, mesh: DeviceMesh, axis_name: str = "data"):
         lambda a: torch.as_tensor(sharding.take(a)).contiguous().to(device),
         batch,
     )
+
+
+class PartitionSpec(tuple):
+    """Per-dimension placement of a tensor on a mesh, as the JAX package's
+    ``jax.sharding.PartitionSpec``: ``PartitionSpec(None, "model")`` splits
+    dimension 1 over the ``model`` axis; ``PartitionSpec()`` replicates;
+    dimensions past the last entry are not split."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"{type(self).__name__}{tuple.__repr__(self)}"
+
+
+class ExpertSpec(PartitionSpec):
+    """A :class:`PartitionSpec` whose first entry splits the experts of a
+    mixture-of-experts layer (:func:`~..models.moe.moe_param_specs`).  It
+    places a tensor as a ``PartitionSpec`` does; the mark tells the sharded
+    steps to run each rank's experts only (expert parallelism,
+    :mod:`.sharded`), where a plain spec's blocks would be gathered."""
+
+
+def _names(part) -> tuple:
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def _blocks(mesh: DeviceMesh, dim_size: int, names: tuple, dim: int):
+    """(block length, this rank's block index) of a dimension split over
+    the product of ``names``."""
+    count, index = 1, 0
+    for name in names:
+        axis = collectives.mesh_axis(mesh, name)
+        count, index = count * axis.size, index * axis.size + axis.rank
+    if dim_size % count:
+        raise ValueError(
+            f"dimension {dim} of size {dim_size} does not divide over the "
+            f"{count} ranks of axes {names}"
+        )
+    return dim_size // count, index
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (a :class:`PartitionSpec`
+    or ``None`` for replicated), in memory of its own."""
+    for dim, part in enumerate(spec or ()):
+        if part is None:
+            continue
+        k, index = _blocks(mesh, t.shape[dim], _names(part), dim)
+        t = t.narrow(dim, index * k, k)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def unshard_leaf(t: torch.Tensor, spec, mesh: DeviceMesh) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec``, on every
+    rank: the inverse of :func:`shard_leaf` (a collective over the axes
+    that ``spec`` names)."""
+    for dim, part in enumerate(spec or ()):
+        if part is None:
+            continue
+        # innermost name first: its ranks hold adjacent blocks
+        for name in reversed(_names(part)):
+            axis = collectives.mesh_axis(mesh, name)
+            if axis.size > 1:
+                t = collectives._gather(t, axis, dim)
+    return t
+
+
+def model_axis(mesh: DeviceMesh, name: str = "model") -> collectives.Axis:
+    """The group of the ranks along the mesh's model axis, their count and
+    this rank's index among them."""
+    return collectives.mesh_axis(mesh, name)

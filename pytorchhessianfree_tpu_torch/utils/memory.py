@@ -12,7 +12,7 @@ size, not ``ravel.dim``).
 
 from __future__ import annotations
 
-from ..config import HFConfig, float_dtype, not_ported
+from ..config import HFConfig, float_dtype
 from ..ops.cg import storing_grid
 from .flatten import TrainableRavel
 
@@ -24,6 +24,11 @@ from .flatten import TrainableRavel
 # previous A p is still held) or of the direction update (-y + beta p).
 # The JAX package's while_loop carries six.
 _CG_VECTORS = 10
+# Whole [n] vectors each rank of a model axis holds beside its blocks
+# (parallel/sharded.py): the gradient, kept for the line search, and in
+# each matvec the gathered direction and its product before the rank
+# keeps its block.
+_GATHERED_VECTORS = 3
 
 
 def solver_memory_bytes(
@@ -49,16 +54,17 @@ def solver_memory_bytes(
             ``ravel.dtype``).
         config: the step configuration (CG iteration cap, backtracking
             grid, storage dtype, preconditioner).
-        model_axis_size: devices the CG space is sharded over; only 1
-            (sharding is not ported, ROADMAP.md item 20).
+        model_axis_size: ranks the CG space is split over
+            (:mod:`~..parallel.sharded`).
 
     Returns a dict with per-buffer byte counts, ``total`` and
-    ``per_device`` (equal to ``total`` on one device).
+    ``per_device``: ``total`` on one device; over ``M > 1`` ranks each
+    holds ``total // M`` of blocks plus three whole vectors of its gathers
+    (the gradient, a matvec's direction and its product), which the JAX
+    package's estimate does not count.
     """
     if model_axis_size < 1:
         raise ValueError(f"Invalid model_axis_size {model_axis_size}")
-    if model_axis_size > 1:
-        raise not_ported("model_axis_size > 1", "item 20")
     n = ravel.dim
     vec_bytes = n * ravel.dtype.itemsize
 
@@ -80,6 +86,7 @@ def solver_memory_bytes(
     precond_bytes = 2 * vec_bytes if preconditioned else 0
 
     total = vectors_bytes + grid_bytes + precond_bytes
+    gathered = _GATHERED_VECTORS * vec_bytes if model_axis_size > 1 else 0
     return {
         "flat_dim": n,
         "vector_bytes": vec_bytes,
@@ -88,7 +95,7 @@ def solver_memory_bytes(
         "iterate_grid_bytes": grid_bytes,
         "precond_diag_bytes": precond_bytes,
         "total": total,
-        "per_device": total,
+        "per_device": total // model_axis_size + gathered,
     }
 
 
@@ -113,4 +120,9 @@ def format_solver_memory(
     if m["precond_diag_bytes"]:
         lines.append(f"precond diagonal: {f(m['precond_diag_bytes'])}")
     lines.append(f"total: {f(m['total'])}")
+    if model_axis_size > 1:
+        lines.append(
+            f"per device (model axis {model_axis_size}): "
+            f"{f(m['per_device'])}"
+        )
     return "\n".join(lines)

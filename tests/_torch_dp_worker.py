@@ -44,6 +44,7 @@ from pytorchhessianfree_tpu_torch.models import (  # noqa: E402
 )
 from pytorchhessianfree_tpu_torch.ops import cg as cg_mod  # noqa: E402
 from pytorchhessianfree_tpu_torch.parallel import (  # noqa: E402
+    collectives,
     data_parallel as dp,
 )
 from pytorchhessianfree_tpu_torch.parallel.distributed import (  # noqa: E402
@@ -226,12 +227,15 @@ def suite_other(mesh, params, data, out):
 def bn_mlp_apply(params, x):
     """``mlp_apply`` with each hidden pre-activation normalized by the
     batch's statistics (BatchNorm without scale or shift): a forward that
-    couples the rows of its batch."""
+    couples the rows of its batch.  The statistics come from
+    ``collectives.batch_mean``, as ``models.resnet.batchnorm``'s do: over
+    every rank's rows under the GSPMD-named steps."""
     layers = params["layers"]
     for layer in layers[:-1]:
         h = x @ layer["w"] + layer["b"]
-        c = h - h.mean(0)
-        x = torch.tanh(c / torch.sqrt((c * c).mean(0) + 1e-5))
+        c = h - collectives.batch_mean(h, (0,))
+        x = torch.tanh(c / torch.sqrt(collectives.batch_mean(c * c, (0,))
+                                      + 1e-5))
     return x @ layers[-1]["w"] + layers[-1]["b"]
 
 
@@ -265,30 +269,52 @@ def suite_wrapper(mesh, params, data, out):
             out[f"wrapper-{reduction}/{k}"] = v
         out[f"wrapper-{reduction}/read"] = np.array(opt._dp_reduction)
 
-    # each rank normalizes its own rows
+    # the shard_map name: each rank normalizes its own rows; the GSPMD
+    # name: every rank's rows together, as one process normalizes the
+    # whole batch
     fns = thf.HFModelFns(model_fn=bn_mlp_apply, loss_outer=mse_loss)
     config = config_for("ggn")
     ravel = thf.TrainableRavel(params)
-    step = dp.make_dp_hf_step(fns, config, ravel, mesh)
-    p, state, ps, ss = params, thf.init_state(ravel, config), [], []
-    for x, y in zip(data["xs"], data["ys"]):
-        p, state, stats = step(p, state, shard_batch((x, y), mesh))
-        ps.append(p)
-        ss.append(stats)
-    record(out, "bn", ravel, ps, ss)
+    for key, build in (("bn", dp.make_dp_hf_step_shardmap),
+                       ("bn-gspmd", dp.make_dp_hf_step)):
+        step = build(fns, config, ravel, mesh)
+        p, state, ps, ss = params, thf.init_state(ravel, config), [], []
+        for x, y in zip(data["xs"], data["ys"]):
+            p, state, stats = step(p, state, shard_batch((x, y), mesh))
+            ps.append(p)
+            ss.append(stats)
+        record(out, key, ravel, ps, ss)
+    # the GSPMD train loop with its EMA diagonal (per-sample gradients of
+    # samples alone) and the accumulated step
+    loop = dp.make_dp_hf_train_loop(fns, config, ravel, mesh,
+                                    precond_ema_decay=0.9)
+    res = loop(params, thf.init_state(ravel, config), batches)
+    out["bn-loop/params"] = ravel.ravel(res[0]).numpy()
+    out["bn-loop/num_cg_iters"] = res[2].num_cg_iters.numpy()
+    p, _, st = dp.make_dp_hf_acc_step(fns, config, ravel, mesh)(
+        params, thf.init_state(ravel, config), chunks)
+    out["bn-acc/params"] = ravel.ravel(p).numpy()
+    out["bn-acc/num_cg_iters"] = np.array(st.num_cg_iters)
 
 
 def spawn(suite, problem_path, out_dir, world=2):
     """Start ``world`` ranks of ``suite`` on a free local port, one
     PyTorch thread each; returns their processes."""
+    return spawn_script(os.path.abspath(__file__),
+                        [str(problem_path), str(out_dir), suite], world)
+
+
+def spawn_script(script, args, world=2):
+    """Start ``world`` ranks of ``script RANK WORLD PORT *args`` on a free
+    local port, one PyTorch thread each; returns their processes."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     return [
         subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(rank), str(world),
-             str(port), str(problem_path), str(out_dir), suite],
+            [sys.executable, str(script), str(rank), str(world), str(port),
+             *args],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env,
         )

@@ -13,9 +13,10 @@ needed, so that they shrink as the port grows:
   ``lowrank_arg`` (``ops/nystrom.py``): eager PyTorch needs neither;
 - the flax/haiku adapters, whose place the ``nn.Module`` adapter takes;
 - ``initialize_distributed(backend=, device=)`` and the ``reduction=`` of
-  ``make_dp_hf_step`` / ``make_dp_hf_train_loop``, added by the port;
-- what waits for ROADMAP items 20c-20f: ``parallel/sharded.py``,
-  ``parallel/pipeline.py``, ``shard_vec`` / ``shard_buf`` and
+  ``make_dp_hf_step`` / ``make_dp_hf_train_loop`` and of
+  ``make_sharded_hf_step`` / ``make_sharded_hf_train_loop``, added by the
+  port;
+- what waits for ROADMAP item 20d: ``parallel/pipeline.py`` and
   ``stack_blocks``.
 """
 
@@ -33,7 +34,7 @@ import pytorchhessianfree_tpu as jhf  # noqa: E402
 
 J, T = "pytorchhessianfree_tpu", "pytorchhessianfree_tpu_torch"
 
-MISSING_MODULES = {"parallel.sharded", "parallel.pipeline"}
+MISSING_MODULES = {"parallel.pipeline"}
 MISSING_NAMES = {
     "ops.select": {"fused_trials", "FusedTrialsResult"},
     "ops.nystrom": {"lowrank_arg"},
@@ -41,15 +42,13 @@ MISSING_NAMES = {
                 "flax_state_update", "haiku_state_update"},
     "models.transformer": {"stack_blocks"},
 }
-MISSING_PARAMS = {
-    ("optimizer", "hf_step"): {"shard_vec", "shard_buf"},
-    ("optimizer", "hf_acc_step"): {"shard_vec", "shard_buf"},
-    ("ops.cg", "cg"): {"shard_vec", "shard_buf"},
-}
+MISSING_PARAMS = {}
 ADDED_PARAMS = {
     ("parallel.distributed", "initialize_distributed"): {"backend"},
     ("parallel.data_parallel", "make_dp_hf_step"): {"reduction"},
     ("parallel.data_parallel", "make_dp_hf_train_loop"): {"reduction"},
+    ("parallel.sharded", "make_sharded_hf_step"): {"reduction"},
+    ("parallel.sharded", "make_sharded_hf_train_loop"): {"reduction"},
 }
 RENAMED = {"key": "generator"}
 ADDED_ANYWHERE = {"device"}

@@ -562,3 +562,28 @@ def test_one_rank_nccl_dp_step_is_hf_step_on_card(nccl_mesh):
     assert all(torch.equal(a, b) for a, b in zip(sa, sb))
     assert ta.num_cg_iters == tb.num_cg_iters
     assert torch.equal(ta.final_loss, tb.final_loss)
+
+
+@pytest.mark.parametrize("backend, world", [("gloo", 2), ("nccl", 1)])
+def test_collectives_on_card_match_the_joined_program(cuda, tmp_path,
+                                                      backend, world):
+    """tests/test_torch_collectives.py's checks with the tensors on
+    ``cuda:0``: two gloo ranks sharing the card, and NCCL at world size 1
+    calling the ``Function``s directly (jvp, linearize replayed 20 times,
+    vjp, vjp of jvp, both Hessian orders and the linearized one, vmap, and
+    all_gather with its reduce-scatter adjoint)."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import _torch_collectives_worker as worker
+    import _torch_dp_worker as dp_worker
+
+    procs = dp_worker.spawn_script(worker.__file__,
+                                   [str(tmp_path), "cuda:0", backend], world)
+    got = dp_worker.collect(procs, tmp_path)
+    for key, want in worker.expected(world).items():
+        np.testing.assert_allclose(np.stack([r[key] for r in got]), want,
+                                   rtol=1e-12, atol=1e-12, err_msg=key)
+    for r in got:
+        np.testing.assert_allclose(r["pair_gather"], r["pair_split"],
+                                   rtol=1e-12, atol=1e-12)

@@ -1,8 +1,10 @@
 """The port's examples (``examples_torch/``): the CPU-sized ones run end to
 end with ``--cpu --tiny``, each in its own process with its own timeout,
-and ``run_allcnnc_cifar100.py --dp`` on two gloo ranks under
-``torch.distributed.run``; every example imports with ``jax`` blocked;
-without ``--cpu`` an example needs the card and stops without one."""
+and ``run_allcnnc_cifar100.py --dp``, ``run_sharded.py --tp``,
+``run_context_parallel.py`` and ``run_moe_lm.py --ep`` on two gloo ranks
+under ``torch.distributed.run``; every example imports with ``jax``
+blocked; without ``--cpu`` an example needs the card and stops without
+one."""
 
 import os
 import subprocess
@@ -32,8 +34,17 @@ CPU_RUNS = {
 
 
 # the data-parallel example, as torch.distributed.run starts it
-DP_RUN = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-          "2", "run_allcnnc_cifar100.py", "--dp", "--cpu", "--tiny"]
+LAUNCH = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+          "2"]
+DP_RUN = LAUNCH + ["run_allcnnc_cifar100.py", "--dp", "--cpu", "--tiny"]
+# the model-axis examples on two ranks -> the line that says they succeeded
+MODEL_AXIS_RUNS = {
+    "run_sharded": (["--tp"], "done."),
+    "run_context_parallel": ([], "next-token loss halved under sequence "
+                                 "splitting; done."),
+    "run_moe_lm": (["--ep", "--tiny"], "next-token loss down through "
+                                       "routed experts; done."),
+}
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +55,8 @@ def started():
     runs = {name: [str(EXAMPLES / f"{name}.py"), "--cpu", "--tiny"]
             for name in CPU_RUNS}
     runs["dp"] = DP_RUN
+    for name, (flags, _) in MODEL_AXIS_RUNS.items():
+        runs[f"2x-{name}"] = LAUNCH + [f"{name}.py", "--cpu", *flags]
     procs = {
         name: subprocess.Popen(
             [sys.executable, *args], cwd=EXAMPLES, env=env,
@@ -90,6 +103,23 @@ def test_cpu_data_parallel_example_runs(started):
         assert after <= before and np.isfinite(after), line
 
 
+@pytest.mark.parametrize("name", sorted(MODEL_AXIS_RUNS))
+def test_cpu_model_axis_example_runs(started, name):
+    """The model-axis examples on two gloo ranks: exit 0, and only rank 0
+    prints, so each step appears once."""
+    proc = started[f"2x-{name}"]
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        pytest.fail(f"{name} did not finish within {TIMEOUT} s")
+    assert proc.returncode == 0, err[-3000:]
+    assert MODEL_AXIS_RUNS[name][1] in out, out[-2000:]
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert steps and len(steps) == len(set(steps)), out[-2000:]
+    assert out.count(MODEL_AXIS_RUNS[name][1]) == 1
+
+
 _IMPORT_ALL = """
 import importlib, runpy, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -104,24 +134,24 @@ for script, flag in (("run_moe_lm", "--ep"),):
     try:
         runpy.run_path({examples!r} + "/" + script + ".py",
                        run_name="__main__")
-    except NotImplementedError as e:
-        assert "item 20" in str(e), e
+    except SystemExit as e:
+        assert "torch.distributed.run" in str(e), e
     else:
-        raise AssertionError(script + " " + flag + " did not raise")
+        raise AssertionError(script + " " + flag + " did not stop")
 print(len(names))
 """
 
 
 def test_every_example_imports_without_jax():
     """Every port example imports without JAX and without the JAX package
-    (their work runs under ``__main__``), and the parallel flag of the JAX
-    examples that waits for a later item (``run_moe_lm.py --ep``) raises
-    as not ported."""
+    (their work runs under ``__main__``), and a parallel flag outside a
+    launcher (``run_moe_lm.py --ep``) stops with how to start the ranks."""
     names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
     assert {"example_utils", "run_resnet18_mnist", "run_allcnnc_cifar100",
             "run_pipeline", "run_transformer", "run_decoder_lm",
             "run_moe_lm", "run_nystrom", "run_spectrum",
-            "run_train_loop"} | set(CPU_RUNS) <= set(names)
+            "run_train_loop"} | set(CPU_RUNS) | set(MODEL_AXIS_RUNS) \
+        <= set(names)
     program = _IMPORT_ALL.format(examples=str(EXAMPLES), names=names)
     proc = subprocess.run([sys.executable, "-c", program], cwd=ROOT,
                           capture_output=True, text=True, timeout=TIMEOUT)

@@ -106,8 +106,15 @@ def test_format_and_refusals():
     ]
     assert "precond diagonal: 85.3 MB" in format_solver_memory(
         tr, thf.HFConfig(cg_max_iter=50, precond="diag_ef"))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        solver_memory_bytes(tr, thf.HFConfig(), model_axis_size=2)
+    # over a model axis: each rank's blocks and three whole vectors
+    one = solver_memory_bytes(tr, thf.HFConfig(cg_max_iter=50))
+    two = solver_memory_bytes(tr, thf.HFConfig(cg_max_iter=50),
+                              model_axis_size=2)
+    assert two["total"] == one["total"]
+    assert two["per_device"] == one["total"] // 2 + 3 * one["vector_bytes"]
+    assert format_solver_memory(
+        tr, thf.HFConfig(cg_max_iter=50), model_axis_size=2
+    ).splitlines()[-1] == "per device (model axis 2): 618.2 MB"
     with pytest.raises(ValueError):
         solver_memory_bytes(tr, thf.HFConfig(), model_axis_size=0)
 

@@ -190,8 +190,35 @@ def test_parameter_counts_match_jax(kwargs):
 
 
 def test_moe_param_specs_waits_for_the_parallel_layer():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.moe_param_specs(2)
+    """The expert-parallel specs exist now (parallel/sharded.py): the JAX
+    package's tree, field by field."""
+    from pytorchhessianfree_tpu_torch.convert import specs_from_jax
+
+    assert tm.moe_param_specs(2) == specs_from_jax(jm.moe_param_specs(2))
+
+
+def test_expert_parallelism_follows_the_expert_mark():
+    """The sharded steps run each rank's experts only under specs that
+    mark them (``ExpertSpec``), whatever the leaves are called; a plain
+    spec splitting a 3-D ``w1`` on its first axis is an ordinary sharded
+    leaf, gathered before the forward."""
+    from pytorchhessianfree_tpu_torch.convert import specs_from_jax
+    from pytorchhessianfree_tpu_torch.parallel.mesh import (
+        ExpertSpec,
+        PartitionSpec as P,
+    )
+    from pytorchhessianfree_tpu_torch.parallel.sharded import _splits_experts
+
+    specs = tm.moe_param_specs(2)
+    assert _splits_experts(specs, "model")
+    assert not _splits_experts(specs, "data")
+    assert not _splits_experts(specs_from_jax(jm.moe_param_specs(2)),
+                               "model")
+    assert not _splits_experts({"w1": P("model", None, None)}, "model")
+    assert _splits_experts({"experts": [ExpertSpec(("data", "model"))]},
+                           "model")
+    assert repr(specs["blocks"][0]["w1"]) == \
+        "ExpertSpec('model', None, None)"
 
 
 def _fns(j_or_t, **kwargs):

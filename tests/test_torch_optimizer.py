@@ -262,7 +262,7 @@ def test_wrapper_refuses_what_is_not_ported():
     opt = thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                           loss_outer=mse_loss)
     batch = (torch.tensor(x), torch.tensor(y))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="require mesh"):
         thf.HessianFree(params_from_jax(params, device="cpu"), model_fn=_t_mlp,
                         loss_outer=mse_loss, param_specs={})
     with pytest.raises(ValueError, match="either M or precond_diag"):

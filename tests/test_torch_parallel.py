@@ -386,11 +386,15 @@ def test_mesh_and_sharding_helpers(mesh1):
 def test_what_the_mesh_refuses(mesh1):
     params, batch = mlp_problem()
     kw = dict(model_fn=mlp_apply, loss_outer=mse_loss)
-    with pytest.raises(NotImplementedError, match="item 20c"):
-        thf.HessianFree(params, mesh=tmesh.make_mesh(
-            axis_names=("data", "model")), **kw)
-    with pytest.raises(NotImplementedError, match="item 20c"):
+    # a model axis runs the sharded steps (parallel/sharded.py); specs
+    # need a mesh, and a mesh with a model axis
+    assert thf.HessianFree(params, mesh=tmesh.make_mesh(
+        axis_names=("data", "model")), **kw)._sharded
+    with pytest.raises(ValueError, match="require mesh"):
         thf.HessianFree(params, param_specs={}, **kw)
+    with pytest.raises(ValueError, match="'model' axis"):
+        thf.HessianFree(params, mesh=mesh1,
+                        batch_specs=tmesh.PartitionSpec(None, "model"), **kw)
     with pytest.raises(ValueError, match="axis"):
         thf.HessianFree(params, mesh=mesh1, data_axis="batch", **kw)
     opt = thf.HessianFree(params, mesh=mesh1, **kw)

@@ -10,10 +10,15 @@ the file on tests/test_parallel.py's MLP problem in f64:
   package's GSPMD step takes the reduction from the loss; the port's
   wrapper reads it from the loss's values;
 - 3 steps of an MLP whose hidden layers are normalized by the batch's
-  statistics, held against JAX's ``make_dp_hf_step_shardmap`` on
-  ``make_mesh(2)`` (each shard normalized by its own statistics, as on the
-  ranks) and against the port's ``hf_acc_step`` in one process with the
-  two shards as chunks.
+  statistics through the ``shard_map`` name, held against JAX's
+  ``make_dp_hf_step_shardmap`` on ``make_mesh(2)`` (each shard normalized
+  by its own statistics, as on the ranks) and against the port's
+  ``hf_acc_step`` in one process with the two shards as chunks;
+- the same 3 steps through the GSPMD name (fault F2, repaired): the
+  statistics are the whole batch's, held against JAX's
+  ``make_dp_hf_step`` on ``make_mesh(2)`` and the port's ``hf_step`` on
+  the whole batch; and the GSPMD train loop with an EMA diagonal and the
+  accumulated step against one process on the whole batches.
 """
 
 import jax.numpy as jnp
@@ -93,6 +98,25 @@ def references(params, data):
     t_run = parity.run(halves_step, tr, tparams, thf.init_state(tr, t_config),
                        data, torch.tensor)
     refs["bn"] = [j_run, t_run]
+
+    j_gspmd = jdp.make_dp_hf_step(j_fns, j_config, jr, mesh)
+    whole = thf.make_hf_step(t_fns, t_config, tr)
+    refs["bn-gspmd"] = [
+        parity.run(j_gspmd, jr, params, jhf.init_state(jr, j_config), data,
+                   jnp.asarray),
+        parity.run(whole, tr, tparams, thf.init_state(tr, t_config), data,
+                   torch.tensor)]
+    T = {k: torch.tensor(v) for k, v in data.items()}
+    loop = thf.make_hf_train_loop(t_fns, t_config, tr, precond_ema_decay=0.9)
+    p, _, st, _ = loop(tparams, thf.init_state(tr, t_config),
+                       (T["xs"], T["ys"]))
+    refs["bn-loop"] = {"params": tr.ravel(p).numpy(),
+                       "num_cg_iters": st.num_cg_iters.numpy()}
+    p, _, st = thf.hf_acc_step(tparams, thf.init_state(tr, t_config),
+                               fns=t_fns, config=t_config, ravel=tr,
+                               loss_data=(T["cx"], T["cy"]))
+    refs["bn-acc"] = {"params": tr.ravel(p).numpy(),
+                      "num_cg_iters": np.array(st.num_cg_iters)}
     return refs
 
 
@@ -145,3 +169,31 @@ def test_row_coupling_model_matches_jax_shardmap(two_ranks):
         parity.assert_same_run(got, ref)
     for k in got:
         np.testing.assert_array_equal(r1[f"bn/{k}"], got[k])
+
+
+def test_row_coupling_model_gspmd_uses_the_whole_batch(two_ranks):
+    """Fault F2, repaired: through the GSPMD name the ranks' BatchNorm
+    statistics are the whole batch's, so JAX's ``make_dp_hf_step`` on a
+    2-device mesh and the port's ``hf_step`` on the whole batch give the
+    ranks' numbers."""
+    refs, (r0, r1) = two_ranks
+    got = {k: r0[f"bn-gspmd/{k}"] for k in ("params", "init_loss",
+                                            "new_damping", "num_cg_iters")}
+    for ref in refs["bn-gspmd"]:
+        parity.assert_same_run(got, ref)
+    for k in got:
+        np.testing.assert_array_equal(r1[f"bn-gspmd/{k}"], got[k])
+
+
+@pytest.mark.parametrize("key", ["bn-loop", "bn-acc"])
+def test_row_coupling_model_gspmd_loop_and_acc_step(two_ranks, key):
+    """The GSPMD train loop with an EMA diagonal (per-sample gradients see
+    each sample alone) and the GSPMD accumulated step (each chunk's
+    statistics over both ranks' rows) equal one process on the whole
+    batches."""
+    refs, (r0, r1) = two_ranks
+    np.testing.assert_array_equal(r0[f"{key}/num_cg_iters"],
+                                  refs[key]["num_cg_iters"])
+    np.testing.assert_allclose(r0[f"{key}/params"], refs[key]["params"],
+                               rtol=0, atol=1e-8)
+    np.testing.assert_array_equal(r1[f"{key}/params"], r0[f"{key}/params"])
