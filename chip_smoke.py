@@ -98,8 +98,9 @@ prints no ``ok`` line:
     with the EMA of the diagonal, finite and non-increasing, replicas equal
     bit for bit; d) ``examples_torch/run_allcnnc_cifar100.py --dp
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 2`` on
-    the card, exit 0 with finite losses.  Each rank counts its kernel
-    launches, which must equal its CG iterations, and the parent adds them;
+    the card, started beside b) and c), exit 0 with finite losses.  Each
+    rank counts its kernel launches, which must equal its CG iterations,
+    and the parent adds them;
 15. the model axis (``parallel/sharded.py``), f32 with TF32 off and
     ``cudnn.deterministic`` on: a) NCCL on a 1-rank (data 1, model 1)
     mesh, one ``make_sharded_hf_step`` step of phase 6's ResNet-18 equal to
@@ -117,7 +118,7 @@ prints no ``ok`` line:
     gradient and GGN matvec within 1e-5 of one process's, a 10-iteration
     CG solve of the start's system on the ranks' blocks within 1e-5 of one
     process's under context parallelism and under the Megatron specs, and
-    2 steps; a Megatron ``param_specs`` step equal bit for bit to the step
+    1 step; a Megatron ``param_specs`` step equal bit for bit to the step
     with replicated weights; each first step within 1e-5 of one process's
     ``hf_step`` where their CG iterations agree; d) the full-width MoE LM under ``moe_param_specs``
     (4 of 8 experts per rank): loss and one GGN matvec within 1e-5 of one
@@ -129,27 +130,46 @@ prints no ``ok`` line:
     own distance from the native convolutions, gradient and matvec, in one
     process on rank 0's 16 rows plus on the 32); f) ``run_sharded.py --tp``,
     ``run_context_parallel.py --tiny`` and ``run_moe_lm.py --ep --tiny`` under
-    ``torch.distributed.run --nproc-per-node 2 --backend gloo``, each exit
-    0 with rank 0 printing alone.  Each rank counts its kernel launches,
-    which must equal its CG iterations.
+    ``torch.distributed.run --nproc-per-node 2 --backend gloo``, started
+    beside b-e), each exit 0 with rank 0 printing alone.  Each rank counts
+    its kernel launches, which must equal its CG iterations;
+16. pipeline parallelism (``parallel/pipeline.py``), phase 10's decoder LM,
+    f32 with TF32 off and ``cudnn.deterministic`` on: a) NCCL on a 1-rank
+    (stage 1) mesh, one microbatch: one pipelined ``hf_step`` equal to the
+    sequential ``hf_step`` bit for bit; b) two gloo ranks sharing the card
+    (this script with ``--pipe-rank``), a (stage 2) mesh, 3 blocks per
+    stage, 4 microbatches of 8 (a bubble of 1/5): the loss, gradient, GGN
+    matvec and Hessian matvec (one-shot) within relative norm 1e-5 of one
+    process's sequential ones, a 10-iteration CG solve of the start's
+    system within 1e-5 of one process's, forwards at 1, 2 and 8
+    microbatches and with remat within 1e-5 of the sequential forward, 2
+    pipelined ``hf_step`` steps (finite, non-increasing losses, replicas
+    bitwise equal), the first within 1e-5 of one process's where their CG
+    iterations agree; the step ms against one process's, the gloo ms of one
+    tick's shift and of the blocks' cotangent sum, each rank's peak memory
+    against one process's; c) ``examples_torch/run_pipeline_parallel.py
+    --backend gloo`` under ``torch.distributed.run --nproc-per-node 4``,
+    started beside b), exit 0 with the loss halved.  Each rank counts its
+    kernel launches, which must equal its CG iterations.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
 trace of 5 matvecs.
 
 Phase 3 also holds the kernel against its plain version at the flat
-dimensions of phases 10 and 11 and at the blocks of n / 2 that each rank
-of 15 b-d gives it (f32), and times it at each of those n beside its
-bound.  The ``kernels`` line counts the kernel's launches on the four
-paths (phases 6, 8, 10 and 11), the steps of phase 12, those of phase
-13 b (read from the example's output) and c, and those of phase 14's and
-15's steps on every rank; the launches of the comparisons (the one-process
-references, 15 b's and c's fixed-length solves) and of phase 12's
-standalone CG solves do not count.
+dimensions of phases 10 and 11, at the blocks of n / 2 that each rank
+of 15 b-d gives it and at the narrow examples' n of 15 f and 16 c (f32),
+and times it at each of those n beside its bound.  The ``kernels`` line
+counts the kernel's launches on the four paths (phases 6, 8, 10 and 11),
+the steps of phase 12, those of phase 13 b (read from the example's
+output) and c, and those of phase 14's,
+15's and 16's steps on every rank; the launches of the comparisons (the
+one-process references, the fixed-length solves of 15 b, c and 16 b) and
+of phase 12's standalone CG solves do not count.
 
 It needs a CUDA device, ``nvcc`` (the CUDA toolkit) and ``g++``, and
-imports no JAX.  ``python3 chip_smoke.py --phase 14`` builds the kernel and
-runs phase 14 alone, ``--phase 15`` phase 15 alone and ``--phase 3`` phase
-3 alone; none of them prints the ``kernels`` line or the ``ok`` line.
+imports no JAX.  ``python3 chip_smoke.py --phase N`` builds the kernel and
+runs phase N alone, for N = 3, 14, 15 or 16; none of them prints the
+``kernels`` line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -182,14 +202,24 @@ from pytorchhessianfree_tpu_torch import (
 )
 from pytorchhessianfree_tpu_torch.config import precision_ctx
 from pytorchhessianfree_tpu_torch.ops import cg_update as ops
+from pytorchhessianfree_tpu_torch.models.transformer import (
+    _block,
+    _layernorm,
+    stack_blocks,
+)
 from pytorchhessianfree_tpu_torch.parallel import (
     collectives,
     data_parallel as dp,
     distributed as pdist,
     mesh as pmesh,
+    pipeline,
     sharded,
 )
-from pytorchhessianfree_tpu_torch.ops.curvature import ggnvp, value_and_grad
+from pytorchhessianfree_tpu_torch.ops.curvature import (
+    ggnvp,
+    hvp,
+    value_and_grad,
+)
 from pytorchhessianfree_tpu_torch.utils.flatten import (
     tree_flatten,
     tree_map,
@@ -199,6 +229,7 @@ from pytorchhessianfree_tpu_torch.utils.memory import (
     format_solver_memory,
     solver_memory_bytes,
 )
+from pytorchhessianfree_tpu_torch.utils.remat import checkpoint
 
 MAIN_N = 11_175_936  # ResNet-18/MNIST flat dimension, padded to 1024
 ALLCNNC_PARAMS = 1_387_108
@@ -210,6 +241,12 @@ PATH_N = {"ResNet-18": MAIN_N, "All-CNN-C": ALLCNNC_N,
 # each rank's block of a flat vector split over a model axis of 2 (15 b-d)
 BLOCK_N = {f"{path} block": n // 2
            for path, n in PATH_N.items() if path != "All-CNN-C"}
+# the narrow examples of 15 f and 16 c: each one's TrainableRavel dim, per
+# rank of the model axis of 2 where the example shards the solver
+EXAMPLE_N = {"run_sharded.py --tp block": 256,
+             "run_context_parallel.py --tiny block": 9_728,
+             "run_moe_lm.py --ep --tiny block": 22_528,
+             "run_pipeline_parallel.py": 35_840}
 NARROW_SEED = 0  # phase 7's weights and batch
 RAGGED_N = 1_000_003
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -260,12 +297,14 @@ def kernel_bound_ms(n):
 
 def phase_kernel():
     """Kernel against plain on the card, at the n of every path, of every
-    rank's block in phase 15 and a ragged n, and its time at each of those
-    but the ragged one; returns the main-size f32 record."""
+    rank's block in phase 15, of the narrow examples and a ragged n, and its
+    time at each of those but the ragged one; returns the main-size f32
+    record."""
     record = {}
     checks = [(n, dtype) for n in (MAIN_N, ALLCNNC_N, RAGGED_N, DENSE_LM_N)
               for dtype in (torch.float32, torch.float64)]
-    checks += [(n, torch.float32) for n in (MOE_N, *BLOCK_N.values())]
+    checks += [(n, torch.float32) for n in (MOE_N, *BLOCK_N.values(),
+                                            *EXAMPLE_N.values())]
     for n, dtype in checks:
         args = kernel_inputs(n, dtype, seed=n % 1000)
         ref = ops.fused_cg_update_reference(*args)
@@ -288,7 +327,7 @@ def phase_kernel():
             record["max_abs_err"] = max(errs)
         del args, ref, out, again
 
-    for path, n in {**PATH_N, **BLOCK_N}.items():
+    for path, n in {**PATH_N, **BLOCK_N, **EXAMPLE_N}.items():
         args = kernel_inputs(n, torch.float32, seed=1)
         kernel = functools.partial(ops.fused_cg_update, *args)
         plain = functools.partial(ops.fused_cg_update_reference, *args)
@@ -302,9 +341,9 @@ def phase_kernel():
         bound = kernel_bound_ms(n)
         print(f"fused_cg_update n={n} f32 ({path}), median of 50 "
               f"CUDA-event-timed calls: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms (moves "
-              f"{7 * 4 * n / 1e6:.0f} MB: {7 * 4 * n / ms / 1e6:.0f} GB/s, "
-              f"{bound / ms:.0%} of the bound)")
+              f"{plain_ms:.4f} ms, bound {bound:.4g} ms (moves "
+              f"{7 * 4 * n / 1e6:.3g} MB: {7 * 4 * n / ms / 1e6:.3g} GB/s, "
+              f"{bound / ms:.2%} of the bound)")
         if n == MAIN_N:
             record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
         del args, kernel, plain
@@ -1653,42 +1692,78 @@ def phase_dp_two_ranks():
     return launches
 
 
-def phase_dp_example():
-    """14 d): the --dp example under torch.distributed.run, two gloo ranks
-    on the card; returns both ranks' launches."""
+def start_example(tmp, script, flags, nproc):
+    """Start ``examples_torch/script`` under ``torch.distributed.run`` with
+    ``nproc`` gloo ranks on the card, its output going to files in ``tmp``
+    (no full pipe can stall it); returns the handle :func:`wait_example`
+    takes."""
     examples = Path(__file__).resolve().parent / "examples_torch"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    files = [open(os.path.join(tmp, f"{script}.{kind}"), "w+")
+             for kind in ("out", "err")]
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "run_allcnnc_cifar100.py", "--dp",
-         "--backend", "gloo"],
-        cwd=examples, capture_output=True, text=True, timeout=400)
-    wall = time.perf_counter() - t0
-    out = proc.stdout
-    if proc.returncode != 0:
-        raise AssertionError(f"the --dp example exited {proc.returncode}:\n"
-                             f"{out}\n{proc.stderr[-4000:]}")
-    losses = [tuple(float(v) for v in line.split("loss ")[1].split(" |")[0]
-                    .split(" -> "))
-              for line in out.splitlines() if line.startswith("step ")]
+         "--nproc-per-node", str(nproc), script, *flags, "--backend",
+         "gloo"],
+        cwd=examples, stdout=files[0], stderr=files[1], text=True)
+    return proc, files, time.perf_counter()
+
+
+def wait_example(handle, timeout=400):
+    """``(returncode, stdout, stderr, seconds from its start to now)`` of a
+    started example (an upper bound on its run time, since it is read once
+    the work beside it ends); it is killed if it outlasts ``timeout``."""
+    proc, files, t0 = handle
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        texts = []
+        for f in files:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    return proc.returncode, texts[0], texts[1], time.perf_counter() - t0
+
+
+def example_launches(label, out, nproc):
+    """The kernel launches that an example's ranks report on rank 0's
+    output (``report_launches``), each checked against its CG
+    iterations; their sum."""
     launches = 0
-    for r in range(2):
+    for r in range(nproc):
         line = out.split(f"rank {r}: fused_cg_update launches: ")[1]
         n = int(line.split()[0])
         iters = [int(i) for i in line.split("(CG iterations [")[1]
                  .split("]")[0].split(",")]
         if n != sum(iters):
-            raise AssertionError(f"rank {r}: {n} launches for {iters}")
+            raise AssertionError(f"{label} rank {r}: {n} launches for "
+                                 f"{iters}")
         launches += n
+    return launches
+
+
+def check_dp_example(handle):
+    """14 d): the --dp example, started beside 14 b-c; returns both ranks'
+    launches."""
+    returncode, out, err, wall = wait_example(handle)
+    if returncode != 0:
+        raise AssertionError(f"the --dp example exited {returncode}:\n"
+                             f"{out}\n{err[-4000:]}")
+    losses = [tuple(float(v) for v in line.split("loss ")[1].split(" |")[0]
+                    .split(" -> "))
+              for line in out.splitlines() if line.startswith("step ")]
+    launches = example_launches("the --dp example", out, 2)
     if not ("2 data-parallel ranks" in out and len(losses) == 2
             and all(math.isfinite(v) for pair in losses for v in pair)):
         raise AssertionError(f"the --dp example:\n{out}")
     for line in out.splitlines():
         print(f"    | {line}")
     print(f"14 d) run_allcnnc_cifar100.py --dp --backend gloo under "
-          f"torch.distributed.run --nproc-per-node 2 on the card: exit 0 in "
-          f"{wall:.1f} s; losses {losses}; launches {launches} = both ranks' "
-          f"CG iterations")
+          f"torch.distributed.run --nproc-per-node 2 on the card (started "
+          f"with 14 b): exit 0, read {wall:.1f} s after its start; losses "
+          f"{losses}; launches {launches} = both ranks' CG iterations")
     return launches
 
 
@@ -1868,25 +1943,31 @@ def shard_resnet(mesh, rank, rec):
         rec["b_est"] = [mem[0]["total"], mem[1]["per_device"]]
 
 
-def shard_decoder(mesh, rank, rec):
-    """15 c) on one rank: the full-width decoder LM: the context-parallel
-    loss, gradient and one GGN matvec, fixed-length CG solves of the start's
-    system on the ranks' blocks under context parallelism and under the
-    Megatron specs, 2 context-parallel steps, 1 Megatron step and 1 step
-    with replicated weights from the same start; rank 0 then computes one
-    process's values, solve and step."""
-    import torch.distributed as dist
-
+def decoder_problem():
+    """Phase 10's full-width decoder LM from the seed-0 start, its blocks in
+    sequence: ``(params, batch, fns, config, ravel)``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_decoder_lm(gen, max_len=128, **LM)
     tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
-    batch = (tokens, tokens)
     fns = pkg.HFModelFns(
         model_fn=functools.partial(models.decoder_lm_apply,
                                    n_heads=LM["n_heads"]),
         loss_outer=models.next_token_loss)
     config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
     ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
+    return params, (tokens, tokens), fns, config, ravel
+
+
+def shard_decoder(mesh, rank, rec):
+    """15 c) on one rank: the full-width decoder LM: the context-parallel
+    loss, gradient and one GGN matvec, fixed-length CG solves of the start's
+    system on the ranks' blocks under context parallelism and under the
+    Megatron specs, 1 context-parallel step, 1 Megatron step and 1 step
+    with replicated weights from the same start; rank 0 then computes one
+    process's values, solve and step."""
+    import torch.distributed as dist
+
+    params, batch, fns, config, ravel = decoder_problem()
     state = pkg.init_state(ravel, config)
     P = pmesh.PartitionSpec
     axis = pmesh.model_axis(mesh)
@@ -1915,7 +1996,7 @@ def shard_decoder(mesh, rank, rec):
                                       batch_specs=P(None, "model"))
     ops.fused_cg_update.launches = 0
     _, _, rec["cp_steps"], cp_flats = timed_steps(cp, params, state, batch,
-                                                  2, ravel)
+                                                  1, ravel)
     rec["cp_launches"] = ops.fused_cg_update.launches
     tp = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
                                       param_specs=specs)
@@ -2236,8 +2317,8 @@ def phase_shard_decoder(r0, r1):
           f"system on the ranks' blocks vs one process's: iterate "
           f"{r0['cp_cg'][0]:.2e}, m-history {r0['cp_cg'][1]:.2e} under CP, "
           f"{r0['tp_cg'][0]:.2e}, {r0['tp_cg'][1]:.2e} under the Megatron "
-          f"specs (norm-wise, <= 1e-5); 2 CP "
-          f"steps: CG iterations {[s['iters'] for s in r0['cp_steps']]} "
+          f"specs (norm-wise, <= 1e-5); 1 CP "
+          f"step: CG iterations {[s['iters'] for s in r0['cp_steps']]} "
           f"(one process's first {ref[0]['iters']}), the first step's "
           f"parameters from one process's hf_step {r0['cp_rel'][0]:.2e} "
           f"({bounds[0]}), losses "
@@ -2308,68 +2389,33 @@ def phase_f2(r0):
           f"{c32[1]:.2e}, + 1e-5); each rank's rows alone: phase 14 b")
 
 
-def phase_model_axis_examples():
-    """15 f): the three model-axis examples under torch.distributed.run,
-    two gloo ranks on the card; returns their launches."""
-    examples = Path(__file__).resolve().parent / "examples_torch"
-    runs = (("run_sharded.py", ["--tp"], "done."),
-            ("run_context_parallel.py", ["--tiny"],
-             "next-token loss down under sequence splitting; done."),
-            ("run_moe_lm.py", ["--ep", "--tiny"],
-             "next-token loss down through routed experts; done."))
-    # started at once (six ranks on the card): the times overlap; each
-    # writes to files, so that no full pipe stalls one while another is read
-    t0 = time.perf_counter()
-    results = []
-    with tempfile.TemporaryDirectory() as tmp:
-        files = [(open(os.path.join(tmp, f"{i}.out"), "w+"),
-                  open(os.path.join(tmp, f"{i}.err"), "w+"))
-                 for i in range(len(runs))]
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", "2", script, *flags, "--backend", "gloo"],
-            cwd=examples, stdout=out, stderr=err, text=True)
-            for (script, flags, _), (out, err) in zip(runs, files)]
-        try:
-            for proc, (out, err) in zip(procs, files):
-                proc.wait(timeout=400)
-                out.seek(0)
-                err.seek(0)
-                results.append((proc.returncode, out.read(), err.read(),
-                                time.perf_counter() - t0))
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-            for out, err in files:
-                out.close()
-                err.close()
+MODEL_AXIS_EXAMPLES = (
+    ("run_sharded.py", ["--tp"], "done."),
+    ("run_context_parallel.py", ["--tiny"],
+     "next-token loss down under sequence splitting; done."),
+    ("run_moe_lm.py", ["--ep", "--tiny"],
+     "next-token loss down through routed experts; done."))
+
+
+def check_model_axis_examples(handles):
+    """15 f): the three model-axis examples, started beside 15 b-e; returns
+    their launches."""
     launches = 0
-    for (script, flags, done), (returncode, out, err, wall) in zip(runs,
-                                                                   results):
+    for (script, flags, done), handle in zip(MODEL_AXIS_EXAMPLES, handles):
+        returncode, out, err, wall = wait_example(handle)
         if returncode != 0 or out.count(done) != 1:
             raise AssertionError(f"{script} exited {returncode}:\n"
                                  f"{out}\n{err[-4000:]}")
         steps = [line for line in out.splitlines() if line.startswith("step ")]
         if len(steps) != len(set(steps)):
             raise AssertionError(f"{script}: more than one rank printed")
-        n = 0
-        for r in range(2):
-            line = out.split(f"rank {r}: fused_cg_update launches: ")[1]
-            count = int(line.split()[0])
-            iters = [int(i) for i in line.split("(CG iterations [")[1]
-                     .split("]")[0].split(",")]
-            if count != sum(iters):
-                raise AssertionError(f"{script} rank {r}: {count} launches "
-                                     f"for {iters}")
-            n += count
+        n = example_launches(script, out, 2)
         launches += n
         print(f"15 f) {script} {' '.join(flags)} --backend gloo under "
               f"torch.distributed.run --nproc-per-node 2 (the three started "
-              f"at once): exit 0 after {wall:.1f} s, {len(steps)} steps "
-              f"printed once (rank 0), "
-              f"launches {n} = both ranks' CG iterations")
+              f"with 15 b-e): exit 0, read {wall:.1f} s after its start, "
+              f"{len(steps)} steps printed once (rank 0), launches {n} = "
+              f"both ranks' CG iterations")
     return launches
 
 
@@ -2380,13 +2426,23 @@ def phase_model_axis():
     launches = phase_shard_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    (r0, r1), wall = two_ranks()
-    print(f"15 b-e) two gloo ranks sharing the card: {wall:.1f} s with "
-          f"start-up")
-    launches += phase_shard_resnet(r0, r1)
-    launches += phase_shard_decoder(r0, r1)
-    launches += phase_shard_moe(r0, r1)
-    launches += phase_model_axis_examples()
+    # f) beside b-e: all wait on the host far more than on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = [start_example(tmp, script, flags, 2)
+                    for script, flags, _ in MODEL_AXIS_EXAMPLES]
+        try:
+            (r0, r1), wall = two_ranks()
+        except BaseException:
+            for handle in examples:
+                handle[0].kill()
+                wait_example(handle)
+            raise
+        print(f"15 b-e) two gloo ranks sharing the card: {wall:.1f} s with "
+              f"start-up")
+        launches += phase_shard_resnet(r0, r1)
+        launches += phase_shard_decoder(r0, r1)
+        launches += phase_shard_moe(r0, r1)
+        launches += check_model_axis_examples(examples)
     torch.backends.cudnn.deterministic = False
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2399,12 +2455,305 @@ def phase_data_parallel():
     launches = phase_dp_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    launches += phase_dp_two_ranks()
-    launches += phase_dp_example()
+    # d) beside b-c: both wait on the host far more than on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        example = start_example(tmp, "run_allcnnc_cifar100.py", ["--dp"], 2)
+        try:
+            launches += phase_dp_two_ranks()
+        except BaseException:
+            example[0].kill()
+            wait_example(example)
+            raise
+        launches += check_dp_example(example)
     torch.backends.cudnn.deterministic = False
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return launches
 
+
+
+PIPE_MICRO = 4  # 16 b): 32 rows as 4 microbatches of 8 over 2 stages
+
+
+def pipelined_decoder(mesh, n_microbatches, remat=False):
+    """``HFModelFns`` of the decoder LM with its blocks run as a GPipe
+    pipeline over the ``stage`` axis of ``mesh``
+    (examples_torch/run_pipeline_parallel.py's model at phase 10's width)."""
+    def block_fn(blk, h):
+        return _block(blk, h, LM["n_heads"], causal=True)
+
+    if remat:
+        block_fn = checkpoint(block_fn)
+
+    def apply(params, tokens):
+        x = params["embed"][tokens] + params["pos"][:tokens.shape[1]]
+        x = pipeline.pipeline_blocks(stack_blocks(params["blocks"]), x,
+                                     block_fn, mesh,
+                                     n_microbatches=n_microbatches)
+        return _layernorm(params["ln_f"], x) @ params["embed"].T
+
+    return pkg.HFModelFns(model_fn=apply, loss_outer=models.next_token_loss)
+
+
+def phase_pipe_nccl():
+    """16 a): NCCL on a 1-rank (stage 1) mesh, one microbatch; one pipelined
+    ``hf_step`` against the sequential one, bit for bit.  Returns the
+    pipelined step's launches."""
+    import torch.distributed as dist
+
+    pdist.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                 backend="nccl", device="cuda:0")
+    mesh = pmesh.make_mesh(axis_names=("stage",))
+    params, batch, fns, config, ravel = decoder_problem()
+    state = pkg.init_state(ravel, config)
+    runs = []
+    for model in (fns, pipelined_decoder(mesh, 1)):
+        ops.fused_cg_update.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = optimizer.hf_step(params, state, batch, fns=model,
+                                config=config, ravel=ravel)
+        torch.cuda.synchronize()
+        runs.append((out, (time.perf_counter() - t0) * 1e3,
+                     ops.fused_cg_update.launches))
+    ((rp, rs, rst), ref_ms, _), ((gp, gs, gst), ms, launches) = runs
+    if not (torch.equal(ravel.ravel(rp), ravel.ravel(gp))
+            and same_state(rs, gs) and rst.num_cg_iters == gst.num_cg_iters
+            and torch.equal(rst.init_loss, gst.init_loss)
+            and torch.equal(rst.final_loss, gst.final_loss)):
+        raise AssertionError(
+            f"16 a): the 1-stage pipelined step differs from hf_step: cg "
+            f"{gst.num_cg_iters} vs {rst.num_cg_iters}, losses "
+            f"{float(gst.init_loss)} -> {float(gst.final_loss)} vs "
+            f"{float(rst.init_loss)} -> {float(rst.final_loss)}")
+    if launches != gst.num_cg_iters:
+        raise AssertionError(f"16 a): {launches} launches for "
+                             f"{gst.num_cg_iters} CG iterations")
+    print(f"16 a) NCCL, 1-rank (stage 1) mesh, one microbatch: the pipelined "
+          f"hf_step on the decoder LM ({DENSE_LM_N:,} parameters, b32 x "
+          f"T128) from the seed-0 start equals the sequential hf_step bit "
+          f"for bit (parameters, state, {gst.num_cg_iters} CG iterations, "
+          f"losses {float(gst.init_loss):.6f} -> "
+          f"{float(gst.final_loss):.6f}); step {ms:.1f} ms against "
+          f"{ref_ms:.1f} ms sequential; fused_cg_update launches {launches} "
+          f"= CG iterations")
+    dist.destroy_process_group()
+    pdist._device = None
+    return launches
+
+
+def pipe_rank(rank, world, port, out_path):
+    """One rank of 16 b) (``chip_smoke.py --pipe-rank``): gloo on the card,
+    a (stage 2) mesh, the decoder LM's 6 blocks as 3 per stage over
+    :data:`PIPE_MICRO` microbatches; rank 0 then computes one process's
+    sequential values, solve, forward and step.  Writes its record."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize_distributed(f"localhost:{port}", world, rank,
+                                 backend="gloo", device="cuda:0")
+    mesh = pmesh.make_mesh(axis_names=("stage",))
+    axis = collectives.mesh_axis(mesh, "stage")
+    params, batch, fns, config, ravel = decoder_problem()
+    tokens = batch[0]
+    state = pkg.init_state(ravel, config)
+    pipe = pipelined_decoder(mesh, PIPE_MICRO)
+    v = torch.randn(ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    rec = {"rank": rank}
+
+    def hessian_matvec(model):
+        # one-shot, forward over reverse (the CPU tests hold the linearized
+        # form through the schedule)
+        return ravel.ravel(hvp(
+            lambda p: model.loss_outer(model.model_fn(p, tokens), tokens),
+            params, ravel.unravel(v)))
+
+    t0 = time.perf_counter()
+    with precision_ctx(config):
+        loss, grad, mvp = optimizer._build_matvec_and_grad(
+            pipe, config, ravel, params, batch)
+        mv = mvp(v)
+        solve = fixed_cg(lambda u: mvp(u) + config.damping * u, -grad)
+        del mvp
+        hv = hessian_matvec(pipe)
+        outs = {f"M={m}": pipelined_decoder(mesh, m).model_fn(params, tokens)
+                for m in (1, 2, 8)}
+        outs["M=4, remat"] = pipelined_decoder(
+            mesh, PIPE_MICRO, remat=True).model_fn(params, tokens)
+    mb = torch.randn(32 // PIPE_MICRO, 128, LM["d_model"], device="cuda")
+    rec["shift_ms"] = statistics.median(
+        host_ms(lambda: collectives.ppermute(mb, axis), 10))
+    rec["blocks_n"] = sum(t.numel() for t in tree_flatten(params["blocks"])[0])
+    cotangent = torch.randn(rec["blocks_n"], device="cuda")
+    rec["blocks_sum_ms"] = statistics.median(
+        host_ms(lambda: collectives._reduce(cotangent, axis), 5))
+    del mb, cotangent
+    rec["wall_values"] = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = functools.partial(optimizer.hf_step, fns=pipe, config=config,
+                             ravel=ravel)
+    ops.fused_cg_update.launches = 0
+    _, _, rec["steps"], flats = timed_steps(step, params, state, batch, 2,
+                                            ravel)
+    rec["launches"] = ops.fused_cg_update.launches
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    if rank == 0:
+        with precision_ctx(config):
+            r_loss, r_grad, r_mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, batch)
+            rec["values_rel"] = [abs(float(loss) / float(r_loss) - 1),
+                                 rel(grad, r_grad), rel(mv, r_mvp(v)),
+                                 rel(hv, hessian_matvec(fns))]
+            one = fixed_cg(lambda u: r_mvp(u) + config.damping * u, -r_grad)
+            rec["cg_rel"] = [rel(solve.x, one.x),
+                             rel(solve.m_hist, one.m_hist)]
+            del r_grad, r_mvp, one
+            seq = fns.model_fn(params, tokens)
+            rec["fwd_rel"] = {k: rel(o, seq) for k, o in outs.items()}
+        del grad, mv, hv, solve, outs, seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one_step = functools.partial(optimizer.hf_step, fns=fns,
+                                     config=config, ravel=ravel)
+        _, _, rec["ref_steps"], ref = timed_steps(one_step, params, state,
+                                                  batch, 1, ravel)
+        rec["ref_peak"] = torch.cuda.max_memory_allocated()
+        rec["step_rel"] = rel(flats[0], ref[0])
+    dist.barrier()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"rank {rank}/{world}: ok")
+
+
+def phase_pipe_two_ranks():
+    """16 b): two gloo ranks sharing the card; returns both ranks' step
+    launches."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pipe-rank",
+             str(r), "2", str(port), paths[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"rank {r}/2: ok" not in out:
+                raise AssertionError(f"16 b) rank {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        r0, r1 = (json.load(open(path)) for path in paths)
+    same_on_ranks("16 b)", r0, r1, "steps")
+    check_losses("16 b)", r0["steps"])
+    launches = sum(launches_of("16 b)", r, "launches", "steps")
+                   for r in (r0, r1))
+    if not max(r0["values_rel"] + r0["cg_rel"]) <= 1e-5:
+        raise AssertionError(f"16 b): loss, gradient, GGN and Hessian "
+                             f"matvecs {r0['values_rel']}, the CG solve "
+                             f"{r0['cg_rel']}")
+    if not max(r0["fwd_rel"].values()) <= 1e-5:
+        raise AssertionError(f"16 b): forwards {r0['fwd_rel']}")
+    ref = r0["ref_steps"][0]
+    # a first step at one process's CG iterations took the same decisions,
+    # so its parameters differ by rounding alone
+    same = r0["steps"][0]["iters"] == ref["iters"]
+    if same and not r0["step_rel"] <= 1e-5:
+        raise AssertionError(f"16 b): the first step at one process's CG "
+                             f"iterations lies {r0['step_rel']} from its "
+                             f"parameters")
+    bound = ("<= 1e-5, the CG iterations agree" if same
+             else "no bound: the CG iterations differ")
+    values = ", ".join(f"{x:.2e}" for x in r0["values_rel"])
+    fwd = ", ".join(f"{k} {x:.2e}" for k, x in r0["fwd_rel"].items())
+    print(f"16 b) two gloo ranks sharing the card, (stage 2) mesh "
+          f"({wall:.1f} s with start-up; the values {r0['wall_values']:.1f} "
+          f"s), the decoder LM's 6 blocks as 3 per stage, {PIPE_MICRO} "
+          f"microbatches of {32 // PIPE_MICRO} (bubble 1/{PIPE_MICRO + 1}): "
+          f"loss, gradient, GGN matvec, Hessian matvec vs one process's "
+          f"sequential ones {values} (relative, norm-wise, <= 1e-5); a "
+          f"{CG_CHECK_ITERS}-iteration CG solve (no stop) of the start's "
+          f"system vs one process's: iterate {r0['cg_rel'][0]:.2e}, "
+          f"m-history {r0['cg_rel'][1]:.2e} (<= 1e-5); forwards {fwd} (<= "
+          f"1e-5); 2 pipelined hf_steps: CG iterations "
+          f"{[s['iters'] for s in r0['steps']]} (one process's first "
+          f"{ref['iters']}), the first step's parameters from one process's "
+          f"{r0['step_rel']:.2e} ({bound}), losses "
+          f"{[(round(s['init'], 6), round(s['final'], 6)) for s in r0['steps']]}, "
+          f"replicas bitwise equal; step ms "
+          f"{[round(s['ms'], 1) for s in r0['steps']]} (rank 0), "
+          f"{[round(s['ms'], 1) for s in r1['steps']]} (rank 1) against one "
+          f"process's {ref['ms']:.1f}; gloo: one tick's shift of "
+          f"[{32 // PIPE_MICRO}, 128, {LM['d_model']}] f32 "
+          f"{r0['shift_ms']:.2f} ms, the blocks' cotangent sum "
+          f"([{r0['blocks_n']:,}] f32) {r0['blocks_sum_ms']:.1f} ms (median, "
+          f"host clock, rank 0); peak memory per rank {gib(r0['peak']):.2f}"
+          f" / {gib(r1['peak']):.2f} GiB against one process's "
+          f"{gib(r0['ref_peak']):.2f} GiB; fused_cg_update launches "
+          f"{r0['launches']} + {r1['launches']} = the ranks' CG iterations")
+    return launches
+
+
+PIPE_EXAMPLE_DONE = "next-token loss halved through the pipelined model; done."
+
+
+def check_pipe_example(handle):
+    """16 c): the pipeline example, started beside 16 b; returns its four
+    ranks' launches."""
+    returncode, out, err, wall = wait_example(handle)
+    if returncode != 0 or out.count(PIPE_EXAMPLE_DONE) != 1:
+        raise AssertionError(f"run_pipeline_parallel.py exited "
+                             f"{returncode}:\n{out}\n{err[-4000:]}")
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    if len(steps) != 6 or len(steps) != len(set(steps)):
+        raise AssertionError(f"run_pipeline_parallel.py: steps {steps}")
+    launches = example_launches("run_pipeline_parallel.py", out, 4)
+    for line in steps:
+        print(f"    | {line}")
+    print(f"16 c) run_pipeline_parallel.py --backend gloo under "
+          f"torch.distributed.run --nproc-per-node 4 (4 stages on the card, "
+          f"started with 16 b): exit 0, read {wall:.1f} s after its start, "
+          f"the loss halved, each step printed once (rank 0); launches "
+          f"{launches} = the four ranks' CG iterations")
+    return launches
+
+
+def phase_pipeline():
+    """Phase 16 (module docstring); returns the kernel launches."""
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    launches = phase_pipe_nccl()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # c) beside b): both wait on the host far more than on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        example = start_example(tmp, "run_pipeline_parallel.py", [], 4)
+        try:
+            launches += phase_pipe_two_ranks()
+        except BaseException:
+            example[0].kill()
+            wait_example(example)
+            raise
+        launches += check_pipe_example(example)
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main():
@@ -2433,7 +2782,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     if sys.argv[1:2] == ["--phase"]:
         {"3": phase_kernel, "14": phase_data_parallel,
-         "15": phase_model_axis}[sys.argv[2]]()
+         "15": phase_model_axis, "16": phase_pipeline}[sys.argv[2]]()
         return
 
     clock = [time.perf_counter()]
@@ -2466,6 +2815,7 @@ def main():
     lap(13)
     launches += phase_data_parallel()
     launches += phase_model_axis()
+    launches += phase_pipeline()
 
     print(json.dumps({"kernels": [{
         "name": "fused_cg_update",
@@ -2492,5 +2842,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--shard-rank"]:
         shard_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                    sys.argv[5])
+    elif sys.argv[1:2] == ["--pipe-rank"]:
+        pipe_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5])
     else:
         main()

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import collectives
+from ..utils.flatten import tree_flatten, tree_unflatten
 from ..utils.remat import checkpoint
 
 
@@ -209,6 +210,17 @@ def _block(blk, x, n_heads: int, causal: bool = False, attn_chunk=None):
     h = _layernorm(blk["ln2"], x)
     h = F.gelu(_apply_dense(blk["ff1"], h), approximate="tanh")
     return x + _apply_dense(blk["ff2"], h)
+
+
+def stack_blocks(blocks):
+    """List of per-layer block trees -> one tree with a leading layer axis
+    (the layout of :func:`~..parallel.pipeline.pipeline_blocks`)."""
+    flat = [tree_flatten(blk) for blk in blocks]
+    treedef = flat[0][1]
+    if any(d != treedef for _, d in flat[1:]):
+        raise ValueError("stack_blocks: the blocks' trees differ")
+    return tree_unflatten(
+        treedef, [torch.stack(leaves) for leaves in zip(*(f for f, _ in flat))])
 
 
 def _run_blocks(

@@ -9,10 +9,11 @@ the combine of experts split across it) calls a collective itself, inside
 ``torch.func.jvp``, ``linearize``, ``vjp`` and ``vmap``.  Each collective
 here is an ``autograd.Function`` of one form:
 
-- the forward is one blocking op registered with ``torch.library``
-  (:func:`_all_reduce_op`, :func:`_all_gather_op`), which ``linearize``'s
-  trace records and replays whole.  An in-place ``dist.all_reduce`` traced
-  into the forward replays racily (a replay may read the rank's own term
+- the forward is local (:func:`copy_to_axis`) or one blocking op
+  registered with ``torch.library`` (:func:`_all_reduce_op`,
+  :func:`_all_gather_op`), which ``linearize``'s trace records and replays
+  whole.  An in-place ``dist.all_reduce`` traced into the forward replays
+  racily (a replay may read the rank's own term
   before the others arrive).  The functional ``_c10d_functional`` op with
   its separate ``wait_tensor`` replays right for a forward, but not for a
   gradient linearized through its backward (a Hessian-vector product):
@@ -25,22 +26,38 @@ here is an ``autograd.Function`` of one form:
   themselves, so that derivatives of derivatives see them;
 - a ``vmap`` rule applies the collective to the batched tensor whole.
 
-The semantics are those of the joined program: rank ``r``'s autograd
-computes the derivative of every rank's outputs, weighted by every rank's
-cotangent, with respect to rank ``r``'s inputs.  So the adjoint of
-:func:`all_reduce_sum` is :func:`all_reduce_sum`, and that of
-:func:`all_gather` is a reduce-scatter (:func:`split` of
-:func:`all_reduce_sum`).  :func:`split` (keep this rank's block) is local:
-its adjoint puts the block back among zeros, which autograd derives.  The
-pair is adjoint across the sharded and replicated inner products: for
-``x`` sharded and ``y`` replicated, ``<all_gather(x), y>`` equals the sum
-over the ranks of ``<x, split(y)>``.
+Two semantics sit side by side:
+
+- **the joined program** (:func:`all_reduce_sum`, :func:`all_gather`,
+  :func:`split`, :func:`ppermute`): every rank's output is a value of its
+  own, and rank ``r``'s autograd computes the derivative of every rank's
+  outputs, weighted by every rank's cotangent, with respect to rank
+  ``r``'s inputs.  So the adjoint of :func:`all_reduce_sum` is
+  :func:`all_reduce_sum`, that of :func:`all_gather` is a reduce-scatter
+  (:func:`split` of :func:`all_reduce_sum`) and that of :func:`ppermute` is
+  the inverse shift.  :func:`split` (keep this rank's block) is local: its
+  adjoint puts the block back among zeros, which autograd derives.  The
+  pair is adjoint across the sharded and replicated inner products: for
+  ``x`` sharded and ``y`` replicated, ``<all_gather(x), y>`` equals the sum
+  over the ranks of ``<x, split(y)>``;
+- **one replicated program** (:func:`copy_to_axis`, :func:`reduce_from_axis`,
+  Megatron's f and g): the value is one, held alike on every rank, as
+  ``shard_map``'s replicated inputs and outputs are, and every rank's
+  autograd computes its one derivative.  :func:`copy_to_axis` is the
+  identity forward and sums the ranks' cotangents backward: a replicated
+  input of which each rank uses a part (its stage's layers) gets the whole
+  gradient on every rank.  :func:`reduce_from_axis` sums the ranks' partial
+  values forward and passes the replicated cotangent through backward.
+  Each is the other's adjoint.  :func:`all_reduce_sum` in place of
+  :func:`reduce_from_axis` would make every rank's autograd add every
+  rank's cotangent of the replicated loss: the gradient would come out as
+  many times too large as the axis has ranks.
 
 gloo takes only ``all_reduce`` and ``broadcast`` on CUDA tensors, so on
-gloo :func:`all_gather` is an ``all_reduce`` of a zero-filled buffer into
-which each rank writes its block.  Adding zeros is exact, except that a
-``-0.0`` block comes back as ``+0.0``.  On an axis of one rank every
-collective is the identity and calls nothing.
+gloo :func:`all_gather` (and so :func:`ppermute`) is an ``all_reduce`` of a
+zero-filled buffer into which each rank writes its block.  Adding zeros is
+exact, except that a ``-0.0`` block comes back as ``+0.0``.  On an axis of
+one rank every collective is the identity and calls nothing.
 
 A model reads the axes a step runs under through :func:`batch_axis`,
 :func:`sequence_axis` and :func:`expert_axis`; the steps set them with
@@ -187,6 +204,80 @@ class _AllGather(torch.autograd.Function):
         return _AllGather.apply(x.movedim(in_dims[0], 0), axis, dim + 1), 0
 
 
+def _shift(x: torch.Tensor, axis: Axis, shift: int) -> torch.Tensor:
+    """The block of rank ``(rank - shift) mod size`` (no autograd): every
+    rank's ``x`` gathered along a new leading dimension."""
+    whole = _gather(x.unsqueeze(0).contiguous(), axis, 0)
+    return whole[(axis.rank - shift) % axis.size]
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis, shift):
+        return _shift(x, axis, shift)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis, ctx.shift = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse shift: each rank's cotangent goes back to its source
+        return _Ppermute.apply(g, ctx.axis, -ctx.shift), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _axis, _shift):
+        return _Ppermute.apply(t, ctx.axis, ctx.shift)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, shift):
+        return _Ppermute.apply(x, axis, shift), in_dims[0]
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceFromAxis.apply(g, ctx.axis), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _CopyToAxis.apply(t, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return _CopyToAxis.apply(x, axis), in_dims[0]
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis):
+        return _reduce(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CopyToAxis.apply(g, ctx.axis), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _ReduceFromAxis.apply(t, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return _ReduceFromAxis.apply(x, axis), in_dims[0]
+
+
 def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The sum of every rank's ``x`` along ``axis``, on every rank."""
     if axis is None or axis.size == 1:
@@ -208,6 +299,35 @@ def split(x: torch.Tensor, axis: Optional[Axis], dim: int = 0):
     if axis is None or axis.size == 1:
         return x
     return _block(x, axis, dim % x.dim())
+
+
+def ppermute(x: torch.Tensor, axis: Optional[Axis], shift: int = 1):
+    """Each rank's ``x`` sent ``shift`` ranks on along ``axis``, cyclically:
+    rank ``r`` returns the ``x`` of rank ``(r - shift) mod size``, as
+    ``lax.ppermute`` with the permutation ``[(i, (i + shift) % size)]``.
+    Joined semantics; the adjoint is the inverse shift."""
+    if axis is None or axis.size == 1:
+        return x
+    return _Ppermute.apply(x, axis, shift % axis.size)
+
+
+def copy_to_axis(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """A replicated ``x`` entering work split over ``axis``: the identity,
+    whose backward sums the ranks' cotangents over the axis (Megatron's
+    f; module docstring).  The adjoint of :func:`reduce_from_axis`."""
+    if axis is None or axis.size == 1:
+        return x
+    return _CopyToAxis.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis: Optional[Axis]):
+    """The ranks' partial values summed over ``axis`` into one replicated
+    value, whose backward passes the replicated cotangent through
+    (Megatron's g; module docstring).  The adjoint of
+    :func:`copy_to_axis`."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceFromAxis.apply(x, axis)
 
 
 # -- the axes a step runs under ------------------------------------------

@@ -15,9 +15,9 @@ needed, so that they shrink as the port grows:
 - ``initialize_distributed(backend=, device=)`` and the ``reduction=`` of
   ``make_dp_hf_step`` / ``make_dp_hf_train_loop`` and of
   ``make_sharded_hf_step`` / ``make_sharded_hf_train_loop``, added by the
-  port;
-- what waits for ROADMAP item 20d: ``parallel/pipeline.py`` and
-  ``stack_blocks``.
+  port.
+
+No module of the JAX package is missing from the port.
 """
 
 import importlib
@@ -34,13 +34,12 @@ import pytorchhessianfree_tpu as jhf  # noqa: E402
 
 J, T = "pytorchhessianfree_tpu", "pytorchhessianfree_tpu_torch"
 
-MISSING_MODULES = {"parallel.pipeline"}
+MISSING_MODULES = set()
 MISSING_NAMES = {
     "ops.select": {"fused_trials", "FusedTrialsResult"},
     "ops.nystrom": {"lowrank_arg"},
     "interop": {"split_flax_variables", "flax_fns", "haiku_fns",
                 "flax_state_update", "haiku_state_update"},
-    "models.transformer": {"stack_blocks"},
 }
 MISSING_PARAMS = {}
 ADDED_PARAMS = {

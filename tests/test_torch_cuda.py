@@ -5,7 +5,8 @@ the peak memory that rematerialization saves on the card, and the Nystrom
 sketch, Lanczos/SLQ, the batched select modes, the reduced-precision
 iterate store and checkpoints on the card against the CPU, and the
 data-parallel pieces on a 1-rank NCCL group (the prefetcher's sharding, a
-DP step equal to ``hf_step``).
+DP step equal to ``hf_step``), and the collectives and the pipeline's probe
+on two gloo ranks sharing the card.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -587,3 +588,24 @@ def test_collectives_on_card_match_the_joined_program(cuda, tmp_path,
     for r in got:
         np.testing.assert_allclose(r["pair_gather"], r["pair_split"],
                                    rtol=1e-12, atol=1e-12)
+
+
+def test_pipeline_probe_on_card_matches_the_sequential_blocks(cuda, tmp_path):
+    """tests/test_torch_pipeline_sharded.py's probe with the tensors on
+    ``cuda:0``, two gloo ranks sharing the card: ``ppermute`` against the
+    joined program, and a two-stage ``pipeline_blocks`` against its blocks
+    in sequence, under jvp, linearize (20 replays), vjp, the vjp of a jvp,
+    the three Hessian orders and vmap of a jvp (f64)."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import _torch_dp_worker as dp_worker
+    import _torch_pipeline_worker as worker
+
+    procs = dp_worker.spawn_script(
+        worker.__file__,
+        [str(tmp_path / "none"), str(tmp_path), "probe", "cuda:0", "gloo"], 2)
+    got = dp_worker.collect(procs, tmp_path)
+    for key, want in worker.probe_expected(2).items():
+        np.testing.assert_allclose(np.stack([r[key] for r in got]), want,
+                                   rtol=1e-12, atol=1e-12, err_msg=key)

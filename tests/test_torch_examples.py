@@ -1,10 +1,10 @@
 """The port's examples (``examples_torch/``): the CPU-sized ones run end to
 end with ``--cpu --tiny``, each in its own process with its own timeout,
-and ``run_allcnnc_cifar100.py --dp``, ``run_sharded.py --tp``,
+``run_allcnnc_cifar100.py --dp``, ``run_sharded.py --tp``,
 ``run_context_parallel.py`` and ``run_moe_lm.py --ep`` on two gloo ranks
-under ``torch.distributed.run``; every example imports with ``jax``
-blocked; without ``--cpu`` an example needs the card and stops without
-one."""
+and ``run_pipeline_parallel.py`` on four under ``torch.distributed.run``;
+every example imports with ``jax`` blocked; without ``--cpu`` an example
+needs the card and stops without one."""
 
 import os
 import subprocess
@@ -46,6 +46,11 @@ MODEL_AXIS_RUNS = {
                                        "routed experts; done."),
 }
 
+# the pipeline example: four ranks, one per stage
+PIPELINE_RUN = ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "4", "run_pipeline_parallel.py", "--cpu"]
+PIPELINE_DONE = "next-token loss halved through the pipelined model; done."
+
 
 @pytest.fixture(scope="module")
 def started():
@@ -57,6 +62,7 @@ def started():
     runs["dp"] = DP_RUN
     for name, (flags, _) in MODEL_AXIS_RUNS.items():
         runs[f"2x-{name}"] = LAUNCH + [f"{name}.py", "--cpu", *flags]
+    runs["pipeline"] = PIPELINE_RUN
     procs = {
         name: subprocess.Popen(
             [sys.executable, *args], cwd=EXAMPLES, env=env,
@@ -120,6 +126,22 @@ def test_cpu_model_axis_example_runs(started, name):
     assert out.count(MODEL_AXIS_RUNS[name][1]) == 1
 
 
+def test_cpu_pipeline_example_runs(started):
+    """``run_pipeline_parallel.py --cpu`` on four gloo ranks: exit 0, its
+    six steps printed once (rank 0) and the loss halved."""
+    proc = started["pipeline"]
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        pytest.fail(f"the pipeline example did not finish within {TIMEOUT} s")
+    assert proc.returncode == 0, err[-3000:]
+    assert out.count(PIPELINE_DONE) == 1, out[-2000:]
+    assert out.rstrip().splitlines()[-1] == PIPELINE_DONE
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert len(steps) == len(set(steps)) == 6, out[-2000:]
+
+
 _IMPORT_ALL = """
 import importlib, runpy, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -150,7 +172,8 @@ def test_every_example_imports_without_jax():
     assert {"example_utils", "run_resnet18_mnist", "run_allcnnc_cifar100",
             "run_pipeline", "run_transformer", "run_decoder_lm",
             "run_moe_lm", "run_nystrom", "run_spectrum",
-            "run_train_loop"} | set(CPU_RUNS) | set(MODEL_AXIS_RUNS) \
+            "run_train_loop", "run_pipeline_parallel"} | set(CPU_RUNS) \
+        | set(MODEL_AXIS_RUNS) \
         <= set(names)
     program = _IMPORT_ALL.format(examples=str(EXAMPLES), names=names)
     proc = subprocess.run([sys.executable, "-c", program], cwd=ROOT,

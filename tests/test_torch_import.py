@@ -41,10 +41,12 @@ import pytorchhessianfree_tpu_torch.parallel.mesh
 import pytorchhessianfree_tpu_torch.parallel.data_parallel
 import pytorchhessianfree_tpu_torch.parallel.collectives
 import pytorchhessianfree_tpu_torch.parallel.sharded
+import pytorchhessianfree_tpu_torch.parallel.pipeline
 sys.path.insert(0, "tests")
 import _torch_dp_worker  # the data-parallel rank of the CPU tests
 import _torch_collectives_worker  # the collectives' rank of the CPU tests
 import _torch_sharded_worker  # the model-axis rank of the CPU tests
+import _torch_pipeline_worker  # the pipeline's rank of the CPU tests
 assert "pytorchhessianfree_tpu" not in sys.modules
 print(len(pkg.__all__))
 """
