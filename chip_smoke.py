@@ -10,10 +10,17 @@ prints no ``ok`` line:
 
 1. the device: its name, and name and power limit from ``nvidia-smi``;
 2. the kernel build from ``pytorchhessianfree_tpu_torch/csrc``;
-3. the CUDA ``fused_cg_update`` against its plain PyTorch version on the
-   card (f32 and f64, at the n of phases 6 and 8 and at a ragged n),
-   bitwise reproducibility of its
-   reductions, and both versions' times at the main path's n;
+3. the kernel build's ``-Xptxas -v`` report (registers, spills), the CUDA
+   ``fused_cg_update`` against its plain PyTorch version on the card (f32
+   and f64, at the n of phases 6 and 8 and at a ragged n), bitwise
+   reproducibility of its reductions, and three times of each version at
+   every timed n: the device time of a call with L2 flushed before it (the
+   durations of its kernels in a ``torch.profiler`` trace; one kernel per
+   call for K1), the host time of a call (the best of 7 rounds of 200
+   calls queued with no synchronise) and the per-call CUDA-event time.
+   The flush keeps the inputs out of L2, but outputs that fit in it (8 n
+   bytes up to ~6M) can be written back after the kernel ends, so the
+   share of the 28 n-byte bound can read a little above 100% there;
 4. CG on the card (kernel) against CG on the CPU (plain version) in f64;
 5. a narrow ResNet-18 HF step on the card against the same step on the CPU
    in f64;
@@ -159,10 +166,12 @@ Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11, at the blocks of n / 2 that each rank
 of 15 b-d gives it and at the narrow examples' n of 15 f and 16 c (f32),
 and times it at each of those n beside its bound.  The ``kernels`` line
-counts the kernel's launches on the four paths (phases 6, 8, 10 and 11),
-the steps of phase 12, those of phase 13 b (read from the example's
-output) and c, and those of phase 14's,
-15's and 16's steps on every rank; the launches of the comparisons (the
+gives K1's device time at the main path's n as ``ms``, with ``call_ms``
+(CUDA events around the call) and ``host_ms`` beside it, and the plain
+version's device time as ``plain_ms``; it counts the kernel's launches
+on the four paths (phases 6, 8, 10 and 11), the steps of phase 12,
+those of phase 13 b (read from the example's output) and c, and those of
+phase 14's, 15's and 16's steps on every rank; the launches of the comparisons (the
 one-process references, the fixed-length solves of 15 b, c and 16 b) and
 of phase 12's standalone CG solves do not count.
 
@@ -250,6 +259,8 @@ EXAMPLE_N = {"run_sharded.py --tp block": 256,
 NARROW_SEED = 0  # phase 7's weights and batch
 RAGGED_N = 1_000_003
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
+DEVICE_CALLS = 30  # profiled K1 calls per n
 # benchmarks/decoder_lm_bench.py and moe_lm_bench.py
 LM = dict(vocab=1024, d_model=512, n_heads=8, n_layers=6, d_ff=2048)
 RTOL_VEC = {torch.float32: 1e-6, torch.float64: 1e-13}  # FMA contraction
@@ -295,11 +306,123 @@ def kernel_bound_ms(n):
     return 7 * 4 * n / HBM_BYTES_PER_S * 1e3
 
 
+_FLUSH = []
+
+
+def l2_flush():
+    """Evict the next launch's inputs from the card's 50 MB L2: write one
+    256 MiB buffer, then read another, so that L2 is left holding clean
+    lines (no write-back of the flush lands in the timed launch)."""
+    if not _FLUSH:
+        _FLUSH.extend(torch.empty(FLUSH_BYTES // 4, device="cuda")
+                      for _ in range(2))
+    _FLUSH[0].fill_(1.0)
+    _FLUSH[1].sum()
+
+
+def device_ms(fn, calls, skip):
+    """Median device time of one call of ``fn`` with L2 flushed before each
+    call: the summed durations of the call's kernels in a ``torch.profiler``
+    trace (device events only).  The flush's kernels (named in ``skip``)
+    split the trace into calls; a call of which the trace lost events (it
+    drops a few) is left out.  Returns ``(ms, kernels per call, calls
+    read)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            l2_flush()
+            fn()
+        torch.cuda.synchronize()
+    per_call, call = [], None
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        if e.name in skip:
+            call = None
+        elif call is None:
+            call = [e]
+            per_call.append(call)
+        else:
+            call.append(e)
+    k = statistics.mode(len(c) for c in per_call) if per_call else 0
+    whole = [c for c in per_call if len(c) == k]
+    if len(per_call) > calls or 2 * len(whole) < calls:
+        raise AssertionError(
+            f"{len(per_call)} calls of {calls} in the trace, {len(whole)} "
+            f"with {k} kernels: {sorted({e.name for c in per_call for e in c})}")
+    ms = [sum(e.time_range.elapsed_us() for e in c) / 1e3 for c in whole]
+    return statistics.median(ms), k, len(whole)
+
+
+def flush_kernels():
+    """The names of the flush's kernels in a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    l2_flush()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            l2_flush()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not names:
+        raise AssertionError("torch.profiler recorded no device event")
+    return names
+
+
+def host_us(fn, calls=200, rounds=7):
+    """Host microseconds per call of ``fn``: a host clock around ``calls``
+    calls queued with no synchronise, divided by ``calls``; the best of
+    ``rounds`` such rounds (the host is shared: other work only adds)."""
+    rates = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        rates.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return min(rates)
+
+
+def host_times(n):
+    """K1 and its plain version at ``n`` in f32: the per-call CUDA-event ms
+    (in turns: plain, kernel, kernel, plain) and host us."""
+    args = kernel_inputs(n, torch.float32, seed=1)
+    kernel = functools.partial(ops.fused_cg_update, *args)
+    plain = functools.partial(ops.fused_cg_update_reference, *args)
+    cuda_ms(kernel, 5)  # warm up
+    cuda_ms(plain, 5)
+    plain_t = cuda_ms(plain, 25)
+    kernel_t = cuda_ms(kernel, 25) + cuda_ms(kernel, 25)
+    plain_t += cuda_ms(plain, 25)
+    return dict(call_ms=statistics.median(kernel_t),
+                plain_call_ms=statistics.median(plain_t),
+                host_us=host_us(kernel), plain_host_us=host_us(plain),
+                bound_ms=kernel_bound_ms(n))
+
+
+def device_times(n, skip):
+    """K1 and its plain version at ``n`` in f32: device ms, L2 flushed."""
+    args = kernel_inputs(n, torch.float32, seed=1)
+    t = {}
+    t["ms"], t["per_call"], t["read"] = device_ms(
+        functools.partial(ops.fused_cg_update, *args), DEVICE_CALLS, skip)
+    t["plain_ms"], _, _ = device_ms(
+        functools.partial(ops.fused_cg_update_reference, *args),
+        DEVICE_CALLS, skip)
+    return t
+
+
 def phase_kernel():
     """Kernel against plain on the card, at the n of every path, of every
     rank's block in phase 15, of the narrow examples and a ragged n, and its
-    time at each of those but the ragged one; returns the main-size f32
+    times at each of those but the ragged one; returns the main-size f32
     record."""
+    print(_build.build_log("fused_cg_update.cu").strip())
     record = {}
     checks = [(n, dtype) for n in (MAIN_N, ALLCNNC_N, RAGGED_N, DENSE_LM_N)
               for dtype in (torch.float32, torch.float64)]
@@ -327,26 +450,36 @@ def phase_kernel():
             record["max_abs_err"] = max(errs)
         del args, ref, out, again
 
-    for path, n in {**PATH_N, **BLOCK_N, **EXAMPLE_N}.items():
-        args = kernel_inputs(n, torch.float32, seed=1)
-        kernel = functools.partial(ops.fused_cg_update, *args)
-        plain = functools.partial(ops.fused_cg_update_reference, *args)
-        cuda_ms(kernel, 5)  # warm up
-        cuda_ms(plain, 5)
-        # in turns: plain, kernel, kernel, plain
-        plain_t = cuda_ms(plain, 25)
-        kernel_t = cuda_ms(kernel, 25) + cuda_ms(kernel, 25)
-        plain_t += cuda_ms(plain, 25)
-        ms, plain_ms = statistics.median(kernel_t), statistics.median(plain_t)
-        bound = kernel_bound_ms(n)
-        print(f"fused_cg_update n={n} f32 ({path}), median of 50 "
-              f"CUDA-event-timed calls: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4g} ms (moves "
-              f"{7 * 4 * n / 1e6:.3g} MB: {7 * 4 * n / ms / 1e6:.3g} GB/s, "
-              f"{bound / ms:.2%} of the bound)")
+    for dtype in (torch.float32, torch.float64):
+        sm_count, per_sm, _ = ops._config(0, dtype.itemsize)
+        print(f"K1 {str(dtype)[6:]}: {sm_count} SMs x {per_sm} resident "
+              f"blocks of {ops.THREADS} threads; grid at the main path's n "
+              f"{ops.launch_geometry(MAIN_N, dtype.itemsize, sm_count, per_sm).grid}")
+    timed = {**PATH_N, **BLOCK_N, **EXAMPLE_N}
+    # host times first: after the profiler has run in this process they
+    # read 20-80% higher (PERF.md)
+    times = {path: host_times(n) for path, n in timed.items()}
+    skip = flush_kernels()
+    per_call = set()
+    for path, n in timed.items():
+        t = times[path]
+        t.update(device_times(n, skip))
+        per_call.add(t["per_call"])
+        print(f"fused_cg_update n={n} f32 ({path}): device "
+              f"{t['ms']:.4f} ms per call ({t['per_call']} kernel(s), median "
+              f"of {t['read']} of {DEVICE_CALLS} calls, L2 flushed, profiler), "
+              f"host {t['host_us']:.1f} us per call (best of 7 x 200 "
+              f"queued), call "
+              f"{t['call_ms']:.4f} ms (median of 50, CUDA events); plain: "
+              f"device {t['plain_ms']:.4f} ms, host {t['plain_host_us']:.1f} "
+              f"us, call {t['plain_call_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4g} ms (moves {7 * 4 * n / 1e6:.3g} MB): "
+              f"device {7 * 4 * n / t['ms'] / 1e6:.4g} GB/s, "
+              f"{t['bound_ms'] / t['ms']:.2%} of the bound")
         if n == MAIN_N:
-            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound)
-        del args, kernel, plain
+            record.update(t)
+    if per_call != {1}:
+        raise AssertionError(f"K1 ran {per_call} kernels per call")
     return record
 
 
@@ -2825,6 +2958,8 @@ def main():
         "launches": launches,
         "max_abs_err": record["max_abs_err"],
         "ms": record["ms"],
+        "call_ms": record["call_ms"],
+        "host_ms": record["host_us"] / 1e3,
         "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"],
         "bound_by": "bytes",

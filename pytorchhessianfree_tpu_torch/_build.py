@@ -6,7 +6,9 @@ C interface, loaded with ``ctypes``: a ``.cu`` source (a CUDA kernel) by
 ``g++``.  The build runs at first use, from the sources in this package
 only, into ``build/`` beside them; a library is named by the hash of its
 source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.
+loaded as it is.  The compiler's output of a successful build is kept
+beside the library (:func:`build_log`): for a kernel, ``-Xptxas -v``'s
+registers, shared memory and spills.
 
 Nothing here runs at import time: importing the package needs neither
 ``nvcc`` nor ``g++`` nor a card.
@@ -27,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
@@ -90,11 +92,24 @@ def build(source: str) -> Path:
                 f"{Path(compiler).name} failed ({proc.returncode}) on "
                 f"{source}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
+        # the log first: a library that exists always has its log
+        log = out.with_suffix(".log")
+        with tempfile.NamedTemporaryFile(
+            "w", dir=BUILD_DIR, suffix=".log", delete=False
+        ) as f:
+            f.write(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(f.name, log)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(source: str) -> str:
+    """The command line and compiler output of ``csrc/<source>``'s build
+    (building it first if needed)."""
+    return build(source).with_suffix(".log").read_text()
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -108,3 +108,81 @@ def test_rejects_non_contiguous_and_bad_alpha():
     with pytest.raises(ValueError, match="one value"):
         fused_cg_update(*args)
 
+
+
+def _kernel_elements(geo, n, width):
+    """The elements the kernel's loops visit, in the order of
+    ``csrc/fused_cg_update.cu``: per thread, whole rounds of ``UNROLL``
+    vectors a grid stride apart, the remaining vectors one at a time, then
+    the scalar head and tail."""
+    from pytorchhessianfree_tpu_torch.ops.cg_update import THREADS, UNROLL
+
+    stride = geo.grid * THREADS
+    tail = geo.head + width * geo.nvec
+    seen = []
+    for tid in range(stride):
+        i = tid
+        while i + (UNROLL - 1) * stride < geo.nvec:
+            for j in range(i, i + UNROLL * stride, stride):
+                seen += range(geo.head + width * j, geo.head + width * (j + 1))
+            i += UNROLL * stride
+        for j in range(i, geo.nvec, stride):
+            seen += range(geo.head + width * j, geo.head + width * (j + 1))
+        for j in range(tid, geo.head + (n - tail), stride):
+            seen.append(j if j < geo.head else tail + (j - geo.head))
+    return seen
+
+
+_SIZES = [0, 1, 3, 4, 5, 7, 1000, 4097, 1_000_003, 1_387_520, 107_717_632]
+
+
+@pytest.mark.parametrize("itemsize, misalign", [
+    (4, 0), (4, 4), (4, 8), (4, 12), (4, None),
+    (8, 0), (8, 8), (8, None),
+])
+def test_launch_geometry_splits_n_once(itemsize, misalign):
+    from pytorchhessianfree_tpu_torch.ops.cg_update import (
+        THREADS, UNROLL, VEC_BYTES, launch_geometry)
+
+    width = VEC_BYTES // itemsize
+    sm_count, per_sm = 132, 2
+    for n in _SIZES:
+        geo = launch_geometry(n, itemsize, sm_count, per_sm, misalign)
+        # a pure function of its arguments
+        assert geo == launch_geometry(n, itemsize, sm_count, per_sm, misalign)
+        tail = geo.head + width * geo.nvec
+        # [0, head) + nvec vectors + [tail, n) is [0, n), once
+        assert 0 <= geo.head <= tail <= n and geo.nvec >= 0
+        if misalign is None:
+            assert (geo.head, geo.nvec) == (n, 0)
+        else:
+            # the vectors start on a 16-byte boundary; head and tail are
+            # shorter than a vector
+            assert (misalign + itemsize * geo.head) % VEC_BYTES == 0 or (
+                geo.nvec == 0 and geo.head == n)
+            assert geo.head < width and n - tail < width
+        # one wave at most, and no idle block
+        assert 1 <= geo.grid <= sm_count * per_sm
+        assert geo.grid == 1 or (
+            (geo.grid - 1) * THREADS < geo.nvec
+            or (geo.grid - 1) * THREADS < n - width * geo.nvec)
+        if misalign == 0 and n >= sm_count * per_sm * THREADS * UNROLL * width:
+            assert geo.grid == sm_count * per_sm
+        if n <= 5000:
+            seen = _kernel_elements(geo, n, width)
+            assert sorted(seen) == list(range(n))
+
+
+def test_launch_geometry_follows_the_card():
+    from pytorchhessianfree_tpu_torch.ops.cg_update import launch_geometry
+
+    n = 11_175_936
+    assert launch_geometry(n, 4, 132, 2).grid == 264
+    assert launch_geometry(n, 4, 132, 3).grid == 396
+    assert launch_geometry(n, 4, 114, 2).grid == 228
+    # a small n launches only the blocks it fills, one vector per thread
+    assert launch_geometry(256, 4, 132, 2).grid == 1
+    assert launch_geometry(4096 * 3, 4, 132, 2) == (12, 0, 3072)
+    assert launch_geometry(4096 * 3 + 2, 4, 132, 2, 8) == (12, 2, 3072)
+    # past one block per SM, a round of 4 vectors per thread
+    assert launch_geometry(1_387_520, 4, 132, 4).grid == 339

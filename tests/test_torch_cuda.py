@@ -62,8 +62,18 @@ def _tensors(n, dtype, device):
     ]
 
 
+def _same_as_reference(out, ref, dtype):
+    # x', r' are formed without FMA contraction: bitwise equal
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    # m, rr: the summation order differs from the plain version
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(out[2], ref[2], rtol=rtol, atol=0)
+    torch.testing.assert_close(out[3], ref[3], rtol=rtol, atol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n", [1, 1000, 1_000_003])
+@pytest.mark.parametrize(
+    "n", [1, 3, 4, 5, 7, 1000, 4097, 1_000_003, 1_387_520])
 def test_kernel_matches_reference(cuda, dtype, n):
     dtype = getattr(torch, dtype)
     args = _tensors(n, dtype, cuda)
@@ -73,14 +83,106 @@ def test_kernel_matches_reference(cuda, dtype, n):
     ref = fused_cg_update_reference(*args)
     torch.cuda.synchronize()
     assert fused_cg_update.launches == before + 2
-    # x', r' are formed without FMA contraction: bitwise equal
-    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-    # m, rr: the summation order differs from the plain version
-    rtol = 1e-5 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(out[2], ref[2], rtol=rtol, atol=0)
-    torch.testing.assert_close(out[3], ref[3], rtol=rtol, atol=0)
+    _same_as_reference(out, ref, dtype)
     # fixed grid, fixed reduction order: bitwise reproducible
     assert torch.equal(out[2], again[2]) and torch.equal(out[3], again[3])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("offsets", [(1,) * 5, (2,) * 5, (3,) * 5,
+                                     (0, 1, 2, 3, 1)])
+def test_kernel_on_misaligned_views(cuda, dtype, offsets):
+    # views with a storage offset: a common one (a scalar head up to the
+    # 16-byte boundary) and offsets that share no boundary (all scalar)
+    dtype = getattr(torch, dtype)
+    n = 4097
+    args = _tensors(n, dtype, cuda)
+    views = [torch.cat([torch.zeros(k, dtype=dtype, device=cuda), t])[k:]
+             for k, t in zip(offsets, args[:5])]
+    assert [v.storage_offset() for v in views] == list(offsets)
+    out = fused_cg_update(*views, args[5])
+    ref = fused_cg_update_reference(*views, args[5])
+    torch.cuda.synchronize()
+    _same_as_reference(out, ref, dtype)
+    assert out[0].is_contiguous() and out[0].shape == (n,)
+
+
+def test_kernel_is_one_launch_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _tensors(1_387_520, torch.float32, cuda)
+    fused_cg_update(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_cg_update(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3, kernels
+    assert all("fused_cg_update_kernel" in k for k in kernels), kernels
+
+
+def _three_updates(x, r, p, Ap, b, alpha):
+    # three chained iterations, as CG makes them
+    outs = []
+    for _ in range(3):
+        x, r, m, rr = fused_cg_update(x, r, p, Ap, b, alpha)
+        outs += [x, r, m, rr]
+    return outs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kernel_in_a_cuda_graph(cuda, dtype):
+    dtype = getattr(torch, dtype)
+    args = _tensors(1_000_003, dtype, cuda)
+    eager = _three_updates(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        _three_updates(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _three_updates(*args)
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
+def test_kernel_outputs_outlive_the_next_call(cuda):
+    # CG keeps rr as the next iteration's r.y: a call must not write the
+    # previous call's (m, rr)
+    first = _tensors(1_000_003, torch.float32, cuda)
+    second = [t * 2 for t in first]
+    _, _, m, rr = fused_cg_update(*first)
+    want = (m.clone(), rr.clone())
+    for _ in range(3):
+        fused_cg_update(*second)
+    torch.cuda.synchronize()
+    assert torch.equal(m, want[0]) and torch.equal(rr, want[1])
+
+
+def test_kernel_on_two_streams_at_once(cuda):
+    inputs = [_tensors(n, torch.float32, cuda) for n in (1_387_520, 1_000_003)]
+    eager = [fused_cg_update(*args) for args in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):  # interleaved, so the two streams overlap
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(fused_cg_update(*inputs[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out in outs[k]:
+            for got, want in zip(out, eager[k]):
+                assert torch.equal(got, want)
 
 
 def test_kernel_rejects_cpu_cuda_mix(cuda):
