@@ -42,7 +42,7 @@ prints no ``ok`` line:
    and the narrow encoder classifier's forward on both;
 10. the full-width decoder LM (19,505,152 parameters, batch 32 x T 128 of
     the affine next-token rule on vocab 1024, GGN,
-    ``HFConfig(damping=1.0, cg_max_iter=50)``, f32): 2 steps, the build,
+    ``HFConfig(damping=1.0, cg_max_iter=50)``, f32): 1 step, the build,
     matvec and peak memory, a bf16-curvature step from the same start with
     its matvec held against f32, and a T 1024 point whose chunked matvecs
     (linearized; one-shot; one-shot and rematerialized) are held against
@@ -94,9 +94,9 @@ prints no ``ok`` line:
     with each rank's BatchNorm statistics its own rows' (the ``shard_map``
     names) within relative norm 1e-5 of one process's accumulated values
     over the same two shards (their distance to the whole batch printed
-    with no bound), 2 ``make_dp_hf_step`` steps (BatchNorm over both ranks'
-    rows, 15 e) with finite, non-increasing losses and the two ranks' parameters
-    equal bit for bit after each (and their CG iterations equal), the step
+    with no bound), 1 ``make_dp_hf_step`` step (BatchNorm over both ranks'
+    rows, 15 e) with a finite, non-increasing loss and the two ranks'
+    parameters equal bit for bit (and their CG iterations equal), the step
     time, and the gloo ``all_reduce`` time of the same vector on the card;
     c) on the same two ranks, phase 8's All-CNN-C/CIFAR-100 (b256 as 4
     chunks of 64, each chunk split 32/32, cross-entropy plus L2):
@@ -113,21 +113,28 @@ prints no ``ok`` line:
     mesh, one ``make_sharded_hf_step`` step of phase 6's ResNet-18 equal to
     ``hf_step`` bit for bit; b) two gloo ranks sharing the card (this
     script with ``--shard-rank``), a (data 1, model 2) mesh, the same
-    ResNet-18: 2 sharded steps (K1 on 5,587,968 elements per rank, replicas
-    bitwise equal, finite non-increasing losses), a 10-iteration CG solve
-    of the first step's system on the ranks' blocks within 1e-5 of one
-    process's (iterate and m-history, norm-wise), the steps' distance to
+    ResNet-18: 1 sharded step (K1 on 5,587,968 elements per rank, replicas
+    bitwise equal, a finite non-increasing loss), a 10-iteration CG solve
+    of its system on the ranks' blocks within 1e-5 of one process's
+    (iterate and m-history, norm-wise), the step's distance to
     one process's ``hf_step`` (no bound: f32 dots summed in two blocks can
     move Martens' stop), each rank's peak of requested bytes against one
     process's beside ``solver_memory_bytes``, and the gloo time of a CG
     iteration's collectives; c) the same ranks, the full-width decoder LM
     (b32 x T128): context parallel (``batch_specs=P(None, "model")``) loss,
-    gradient and GGN matvec within 1e-5 of one process's, a 10-iteration
-    CG solve of the start's system on the ranks' blocks within 1e-5 of one
-    process's under context parallelism and under the Megatron specs, and
-    1 step; a Megatron ``param_specs`` step equal bit for bit to the step
-    with replicated weights; each first step within 1e-5 of one process's
-    ``hf_step`` where their CG iterations agree; d) the full-width MoE LM under ``moe_param_specs``
+    gradient and GGN matvec within 1e-5 of one process's; under the
+    Megatron ``param_specs`` (each rank computes 4 of 8 heads and 1024 of
+    2048 feed-forward columns per block) the loss, gradient, GGN and
+    one-shot Hessian matvecs within 1e-5 of one process's, the ranks'
+    gradients bitwise equal, each rank's forward FLOPs
+    (``FlopCounterMode``) exactly half of one process's blocks plus the
+    whole tied head, and each rank's peak of requested bytes of one
+    gradient + build + matvec beside the replicated-weights form's and one
+    process's, and the gloo ms of a matvec; a 10-iteration CG solve of the
+    start's system on the ranks' blocks within 1e-5 of one process's under
+    context parallelism and under the Megatron specs, and 1 step of each;
+    each first step within 1e-5 of one process's ``hf_step`` where their
+    CG iterations agree; d) the full-width MoE LM under ``moe_param_specs``
     (4 of 8 experts per rank): loss and one GGN matvec within 1e-5 of one
     process's, 1 step and each rank's peak memory; e) fault F2, on b's
     ranks as a (data 2) mesh, ResNet-18 b32 as 2 x 16: the GSPMD names'
@@ -135,8 +142,9 @@ prints no ``ok`` line:
     against one process on the whole batch, in f64 (within 1e-10), in f32
     with cuDNN off (within 1e-5) and with cuDNN (within ten times cuDNN's
     own distance from the native convolutions, gradient and matvec, in one
-    process on rank 0's 16 rows plus on the 32); f) ``run_sharded.py --tp``,
-    ``run_context_parallel.py --tiny`` and ``run_moe_lm.py --ep --tiny`` under
+    process on rank 0's 16 rows plus on the 32); f) ``run_sharded.py --tp``
+    and ``--megatron``, ``run_context_parallel.py --tiny`` and
+    ``run_moe_lm.py --ep --tiny`` under
     ``torch.distributed.run --nproc-per-node 2 --backend gloo``, started
     beside b-e), each exit 0 with rank 0 printing alone.  Each rank counts
     its kernel launches, which must equal its CG iterations;
@@ -149,10 +157,10 @@ prints no ``ok`` line:
     matvec and Hessian matvec (one-shot) within relative norm 1e-5 of one
     process's sequential ones, a 10-iteration CG solve of the start's
     system within 1e-5 of one process's, forwards at 1, 2 and 8
-    microbatches and with remat within 1e-5 of the sequential forward, 2
-    pipelined ``hf_step`` steps (finite, non-increasing losses, replicas
-    bitwise equal), the first within 1e-5 of one process's where their CG
-    iterations agree; the step ms against one process's, the gloo ms of one
+    microbatches and with remat within 1e-5 of the sequential forward, 1
+    pipelined ``hf_step`` step (a finite, non-increasing loss, replicas
+    bitwise equal) within 1e-5 of one process's where their CG iterations
+    agree; the step ms against one process's, the gloo ms of one
     tick's shift and of the blocks' cotangent sum, each rank's peak memory
     against one process's; c) ``examples_torch/run_pipeline_parallel.py
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 4``,
@@ -253,6 +261,7 @@ BLOCK_N = {f"{path} block": n // 2
 # the narrow examples of 15 f and 16 c: each one's TrainableRavel dim, per
 # rank of the model axis of 2 where the example shards the solver
 EXAMPLE_N = {"run_sharded.py --tp block": 256,
+             "run_sharded.py --megatron block": 9_408,
              "run_context_parallel.py --tiny block": 9_728,
              "run_moe_lm.py --ep --tiny block": 22_528,
              "run_pipeline_parallel.py": 35_840}
@@ -320,13 +329,10 @@ def l2_flush():
     _FLUSH[1].sum()
 
 
-def device_ms(fn, calls, skip):
-    """Median device time of one call of ``fn`` with L2 flushed before each
-    call: the summed durations of the call's kernels in a ``torch.profiler``
-    trace (device events only).  The flush's kernels (named in ``skip``)
-    split the trace into calls; a call of which the trace lost events (it
-    drops a few) is left out.  Returns ``(ms, kernels per call, calls
-    read)``."""
+def traced_calls(fn, calls, skip):
+    """The device kernels of ``calls`` calls of ``fn``, L2 flushed before
+    each, in a ``torch.profiler`` trace (device events only), split into
+    calls by the flush's kernels (named in ``skip``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -346,14 +352,34 @@ def device_ms(fn, calls, skip):
             per_call.append(call)
         else:
             call.append(e)
-    k = statistics.mode(len(c) for c in per_call) if per_call else 0
-    whole = [c for c in per_call if len(c) == k]
-    if len(per_call) > calls or 2 * len(whole) < calls:
+    if len(per_call) > calls:
         raise AssertionError(
-            f"{len(per_call)} calls of {calls} in the trace, {len(whole)} "
-            f"with {k} kernels: {sorted({e.name for c in per_call for e in c})}")
+            f"{len(per_call)} calls of {calls} in the trace: "
+            f"{sorted({e.name for c in per_call for e in c})}")
+    return per_call
+
+
+def device_ms(fn, calls, skip, traces=4):
+    """Median device time of one call of ``fn`` with L2 flushed before each
+    call: the summed durations of the call's kernels
+    (:func:`traced_calls`).  A call of which the trace lost events (CUPTI
+    drops some, once 17 calls' of 30) is left out, and another trace of
+    ``calls`` calls is taken, up to ``traces`` in all, until at least half
+    the calls traced are whole.  Returns ``(ms, kernels per call, calls
+    read, calls traced)``."""
+    per_call = []
+    for traced in range(calls, (traces + 1) * calls, calls):
+        per_call += traced_calls(fn, calls, skip)
+        k = statistics.mode(len(c) for c in per_call) if per_call else 0
+        whole = [c for c in per_call if len(c) == k]
+        if 2 * len(whole) >= traced:
+            break
+    else:
+        raise AssertionError(
+            f"{len(whole)} whole calls with {k} kernels of {traced} traced: "
+            f"{sorted({e.name for c in per_call for e in c})}")
     ms = [sum(e.time_range.elapsed_us() for e in c) / 1e3 for c in whole]
-    return statistics.median(ms), k, len(whole)
+    return statistics.median(ms), k, len(whole), traced
 
 
 def flush_kernels():
@@ -409,9 +435,9 @@ def device_times(n, skip):
     """K1 and its plain version at ``n`` in f32: device ms, L2 flushed."""
     args = kernel_inputs(n, torch.float32, seed=1)
     t = {}
-    t["ms"], t["per_call"], t["read"] = device_ms(
+    t["ms"], t["per_call"], t["read"], t["traced"] = device_ms(
         functools.partial(ops.fused_cg_update, *args), DEVICE_CALLS, skip)
-    t["plain_ms"], _, _ = device_ms(
+    t["plain_ms"], _, _, _ = device_ms(
         functools.partial(ops.fused_cg_update_reference, *args),
         DEVICE_CALLS, skip)
     return t
@@ -467,7 +493,7 @@ def phase_kernel():
         per_call.add(t["per_call"])
         print(f"fused_cg_update n={n} f32 ({path}): device "
               f"{t['ms']:.4f} ms per call ({t['per_call']} kernel(s), median "
-              f"of {t['read']} of {DEVICE_CALLS} calls, L2 flushed, profiler), "
+              f"of {t['read']} of {t['traced']} calls, L2 flushed, profiler), "
               f"host {t['host_us']:.1f} us per call (best of 7 x 200 "
               f"queued), call "
               f"{t['call_ms']:.4f} ms (median of 50, CUDA events); plain: "
@@ -931,7 +957,7 @@ def cosine(a, b):
 
 
 def phase_decoder_lm():
-    """2 HF steps of the full-width decoder LM, a bf16-curvature step from
+    """1 HF step of the full-width decoder LM, a bf16-curvature step from
     the same start, and the long-sequence chunked matvec."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.init_decoder_lm(gen, max_len=128, **LM)
@@ -950,8 +976,8 @@ def phase_decoder_lm():
     start = opt.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = run_steps(opt, batch, 2, "the decoder LM path")
-    print(f"decoder LM steps: peak memory "
+    launches = run_steps(opt, batch, 1, "the decoder LM path")
+    print(f"decoder LM step: peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
     lm_matvec(opt, batch, gen, "decoder LM")
 
@@ -1678,17 +1704,15 @@ def dp_rank(rank, world, port, out_path):
     step = dp.make_dp_hf_step(fns, config, ravel, mesh)
     params, state = opt.params, opt.state
     ops.fused_cg_update.launches = 0
-    rec["b_steps"] = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, st = step(params, state, local)
-        torch.cuda.synchronize()
-        rec["b_steps"].append({
-            "ms": (time.perf_counter() - t0) * 1e3,
-            "iters": st.num_cg_iters, "init": float(st.init_loss),
-            "final": float(st.final_loss), "params": digest(ravel.ravel(
-                params))})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, st = step(params, state, local)
+    torch.cuda.synchronize()
+    rec["b_steps"] = [{
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "iters": st.num_cg_iters, "init": float(st.init_loss),
+        "final": float(st.final_loss), "params": digest(ravel.ravel(
+            params))}]
     rec["b_launches"] = ops.fused_cg_update.launches
     u = torch.ones(MAIN_N, device="cuda")
     rec["gloo_ms"] = statistics.median(host_ms(
@@ -1800,11 +1824,11 @@ def phase_dp_two_ranks():
           f"1e-5), and vs one process on the whole batch of 32 "
           f"{r0['b_whole'][0]:.2e}, {r0['b_whole'][1]:.2e}, "
           f"{r0['b_whole'][2]:.2e} (no bound; 15 e has the GSPMD names'); "
-          f"2 make_dp_hf_step steps (BatchNorm over both ranks' rows): "
+          f"1 make_dp_hf_step step (BatchNorm over both ranks' rows): "
           f"losses "
           f"{[(round(s['init'], 6), round(s['final'], 6)) for s in steps]}, "
           f"CG iterations {[s['iters'] for s in steps]} on both ranks, "
-          f"parameters bitwise equal on both after each step; step ms (two "
+          f"parameters bitwise equal on both; step ms (two "
           f"ranks sharing one card, not a scaling figure) "
           f"{[round(s['ms'], 1) for s in steps]} (rank 0), "
           f"{[round(s['ms'], 1) for s in r1['b_steps']]} (rank 1); gloo "
@@ -1831,7 +1855,8 @@ def start_example(tmp, script, flags, nproc):
     (no full pipe can stall it); returns the handle :func:`wait_example`
     takes."""
     examples = Path(__file__).resolve().parent / "examples_torch"
-    files = [open(os.path.join(tmp, f"{script}.{kind}"), "w+")
+    name = "".join([script, *flags])
+    files = [open(os.path.join(tmp, f"{name}.{kind}"), "w+")
              for kind in ("out", "err")]
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -1902,8 +1927,9 @@ def check_dp_example(handle):
 
 def megatron_decoder_specs(n_layers):
     """tests/test_sharded.py:316-331's Megatron tree for the decoder LM:
-    QKV and FF1 by column, proj and FF2 by row, the embeddings by feature
-    (the head is tied; ``ln_f`` replicated)."""
+    QKV and FF1 by column, proj and FF2 by row (the step partitions the
+    blocks' compute), the embeddings by feature (gathered; the head is
+    tied; ``ln_f`` replicated)."""
     P = pmesh.PartitionSpec
     col, row = P(None, "model"), P("model", None)
     return {"embed": P(None, "model"), "pos": P(None, "model"), "ln_f": P(),
@@ -2022,10 +2048,10 @@ def spec_blocks(params, specs, mesh):
 
 
 def shard_resnet(mesh, rank, rec):
-    """15 b) on one rank: 2 sharded ResNet-18 steps, the step's peak, the
-    collectives of a CG iteration, and a fixed-length CG solve of the first
+    """15 b) on one rank: 1 sharded ResNet-18 step, its peak, the
+    collectives of a CG iteration, and a fixed-length CG solve of the
     step's damped system on the rank's blocks; rank 0 then runs one
-    process's 2 ``hf_step`` steps and the same solve, and compares."""
+    process's ``hf_step`` and the same solve, and compares."""
     import torch.distributed as dist
 
     opt, batch, _ = resnet_main_path()
@@ -2037,7 +2063,7 @@ def shard_resnet(mesh, rank, rec):
     torch.cuda.reset_peak_memory_stats()
     ops.fused_cg_update.launches = 0
     _, state, rec["b_steps"], flats = timed_steps(
-        step, opt.params, opt.state, batch, 2, ravel)
+        step, opt.params, opt.state, batch, 1, ravel)
     rec["b_launches"] = ops.fused_cg_update.launches
     rec["b_peak"] = requested_bytes("peak") - base
     rec["b_block"] = state.x0.numel()
@@ -2091,16 +2117,53 @@ def decoder_problem():
     return params, (tokens, tokens), fns, config, ravel
 
 
+def forward_flops(fns, params, tokens, tensor=None):
+    """The FLOPs of one forward under the tensor axis ``tensor``
+    (``FlopCounterMode``: the matmuls)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), collectives.axes(tensor=tensor), \
+            FlopCounterMode(display=False) as counter:
+        fns.model_fn(params, tokens)
+    return counter.get_total_flops()
+
+
+def values_and_peak(fns, config, ravel, params, batch, v, tensor=None):
+    """One gradient + build + GGN matvec under the tensor axis ``tensor``
+    (``None``: the whole forward): ``((loss, grad, mvp, mvp(v)), peak of
+    requested bytes)``."""
+    def build():
+        with collectives.axes(tensor=tensor), precision_ctx(config):
+            loss, grad, mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, batch)
+            return loss, grad, mvp, mvp(v)
+
+    out, _, _, peak = with_peak(build)
+    return out, peak
+
+
+def hessian_matvec(fns, params, tokens, ravel, v, tensor=None):
+    """One-shot Hessian matvec (forward over reverse) under ``tensor``."""
+    with collectives.axes(tensor=tensor):
+        return ravel.ravel(hvp(
+            lambda p: fns.loss_outer(fns.model_fn(p, tokens), tokens),
+            params, ravel.unravel(v)))
+
+
 def shard_decoder(mesh, rank, rec):
-    """15 c) on one rank: the full-width decoder LM: the context-parallel
-    loss, gradient and one GGN matvec, fixed-length CG solves of the start's
-    system on the ranks' blocks under context parallelism and under the
-    Megatron specs, 1 context-parallel step, 1 Megatron step and 1 step
-    with replicated weights from the same start; rank 0 then computes one
-    process's values, solve and step."""
+    """15 c) on one rank: the full-width decoder LM.  Context parallel: the
+    loss, gradient and one GGN matvec, a fixed-length CG solve of the
+    start's system on the ranks' blocks, 1 step.  Megatron (the Megatron
+    specs' blocks, gathered as the step gathers them, through the
+    partitioned forward): the forward's FLOPs, the loss, gradient, GGN and
+    Hessian matvecs, the peak of one gradient + build + matvec beside the
+    replicated-weights one, the gloo ms of a matvec, the same solve and 1
+    step.  Rank 0 then computes one process's values, FLOPs, peak, solve
+    and step."""
     import torch.distributed as dist
 
     params, batch, fns, config, ravel = decoder_problem()
+    tokens = batch[0]
     state = pkg.init_state(ravel, config)
     P = pmesh.PartitionSpec
     axis = pmesh.model_axis(mesh)
@@ -2115,50 +2178,55 @@ def shard_decoder(mesh, rank, rec):
             sharded._AxesReduce(None, axis, "sum"))
         mv = mvp(v)
         solves = {"cp_cg": sharded_cg(shard, mvp, grad, config.damping)}
+    cp = [loss, grad, mv]
     del mvp
-    # the Megatron specs' blocks of the weights, gathered as the step
-    # gathers them, under one process's forward on the whole batch
-    with precision_ctx(config):
-        _, tp_grad, tp_mvp = optimizer._build_matvec_and_grad(
-            fns, config, ravel, sharded.unshard_params(
-                spec_blocks(params, specs, mesh), specs, mesh, ravel),
-            batch)
+    whole = sharded.unshard_params(spec_blocks(params, specs, mesh), specs,
+                                   mesh, ravel)
+    rec["tp_flops"] = forward_flops(fns, whole, tokens, axis)
+    (tp_loss, tp_grad, tp_mvp, tp_mv), rec["tp_peak"] = values_and_peak(
+        fns, config, ravel, whole, batch, v, axis)
+    rec["tp_grad"] = digest(tp_grad)
+    with collectives.axes(tensor=axis), precision_ctx(config):
+        rec["tp_mv_ms"] = statistics.median(host_ms(lambda: tp_mvp(v), 5))
         solves["tp_cg"] = sharded_cg(shard, tp_mvp, tp_grad, config.damping)
-    del tp_grad, tp_mvp
-    cp = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
-                                      batch_specs=P(None, "model"))
+    del tp_mvp
+    with precision_ctx(config):
+        tp = [tp_loss, tp_grad, tp_mv,
+              hessian_matvec(fns, whole, tokens, ravel, v, axis)]
+    _, rec["plain_peak"] = values_and_peak(fns, config, ravel, params, batch,
+                                           v)
+    cp_step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+                                           batch_specs=P(None, "model"))
     ops.fused_cg_update.launches = 0
-    _, _, rec["cp_steps"], cp_flats = timed_steps(cp, params, state, batch,
-                                                  1, ravel)
+    _, _, rec["cp_steps"], cp_flats = timed_steps(cp_step, params, state,
+                                                  batch, 1, ravel)
     rec["cp_launches"] = ops.fused_cg_update.launches
-    tp = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
-                                      param_specs=specs)
+    tp_step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+                                           param_specs=specs)
     ops.fused_cg_update.launches = 0
     tp_params, _, rec["tp_steps"], tp_flats = timed_steps(
-        tp, params, state, batch, 1, ravel,
+        tp_step, params, state, batch, 1, ravel,
         whole=lambda p: whole_params(p, specs, mesh, ravel))
     rec["tp_launches"] = ops.fused_cg_update.launches
     rec["tp_block"] = list(tp_params["blocks"][0]["qkv"]["w"].shape)
-    plain = sharded.make_sharded_hf_step(fns, config, ravel, mesh)
-    ops.fused_cg_update.launches = 0
-    _, _, rec["plain_steps"], plain_flats = timed_steps(
-        plain, params, state, batch, 1, ravel)
-    rec["plain_launches"] = ops.fused_cg_update.launches
-    # Megatron specs change where the weights live, not the arithmetic
-    rec["tp_equal"] = bool(torch.equal(tp_flats[0], plain_flats[0]))
-    del cp, tp, tp_params, plain
+    del cp_step, tp_step, tp_params, whole
     dist.barrier()
     if rank == 0:
+        rec["one_flops"] = forward_flops(fns, params, tokens)
+        (r_loss, r_grad, r_mvp, r_mv), rec["one_peak"] = values_and_peak(
+            fns, config, ravel, params, batch, v)
         with precision_ctx(config):
-            r_loss, r_grad, r_mvp = optimizer._build_matvec_and_grad(
-                fns, config, ravel, params, batch)
-            rec["cp_values_rel"] = [abs(float(loss) / float(r_loss) - 1),
-                                    rel(grad, r_grad), rel(mv, r_mvp(v))]
+            rec["one_mv_ms"] = statistics.median(host_ms(lambda: r_mvp(v),
+                                                         5))
+            r_hv = hessian_matvec(fns, params, tokens, ravel, v)
             one_cg = fixed_cg(lambda u: r_mvp(u) + config.damping * u,
                               -r_grad)
+        ref = [r_loss, r_grad, r_mv, r_hv]
+        rec["cp_values_rel"] = [rel(a, b) for a, b in zip(cp, ref)]
+        rec["tp_values_rel"] = [rel(a, b) for a, b in zip(tp, ref)]
         for key, (x, m_hist) in solves.items():
             rec[key] = [rel(x, one_cg.x), rel(m_hist, one_cg.m_hist)]
-        del r_grad, r_mvp, one_cg
+        del r_grad, r_mvp, r_mv, r_hv, ref, one_cg
         one = functools.partial(optimizer.hf_step, fns=fns, config=config,
                                 ravel=ravel)
         _, _, rec["c_ref_steps"], ref = timed_steps(one, params, state,
@@ -2377,12 +2445,12 @@ def phase_shard_resnet(r0, r1):
     iters = [s["iters"] for s in r0["b_steps"]]
     per_iter = r0["gather_ms"] + 2 * r0["dot_ms"]
     print(f"15 b) two gloo ranks sharing the card, (data 1, model 2) mesh "
-          f"({wall:.1f} s), ResNet-18/MNIST b32, 2 "
-          f"make_sharded_hf_step steps: K1 on {r0['b_block']:,} elements "
+          f"({wall:.1f} s), ResNet-18/MNIST b32, 1 "
+          f"make_sharded_hf_step step: K1 on {r0['b_block']:,} elements "
           f"per rank; a {CG_CHECK_ITERS}-iteration CG solve (no stop) of "
           f"the first step's system on the ranks' blocks vs one process: "
           f"iterate {r0['cg_rel'][0]:.2e}, m-history {r0['cg_rel'][1]:.2e} "
-          f"(norm-wise, <= 1e-5); the steps' CG iterations {iters} against "
+          f"(norm-wise, <= 1e-5); the step's CG iterations {iters} against "
           f"one process's first {r0['b_ref_steps'][0]['iters']}, the first "
           f"step's parameters {r0['b_rel'][0]:.2e} and final loss "
           f"{r0['b_loss_rel'][0]:.2e} from one process's hf_step (relative;"
@@ -2413,14 +2481,26 @@ def phase_shard_decoder(r0, r1):
     for key in ("cp_steps", "tp_steps"):
         same_on_ranks("15 c)", r0, r1, key)
         check_losses(f"15 c) {key}", r0[key])
-    same_on_ranks("15 c)", r0, r1, "plain_steps")
-    if not max(r0["cp_values_rel"]) <= 1e-5:
-        raise AssertionError(f"15 c): context-parallel loss, gradient, "
-                             f"matvec {r0['cp_values_rel']}")
+    if r0["tp_grad"] != r1["tp_grad"]:
+        raise AssertionError("15 c): the ranks' gradients through the "
+                             "partitioned forward differ")
+    if not max(r0["cp_values_rel"] + r0["tp_values_rel"]) <= 1e-5:
+        raise AssertionError(f"15 c): loss, gradient, GGN (and Hessian) "
+                             f"matvec vs one process's: context parallel "
+                             f"{r0['cp_values_rel']}, Megatron "
+                             f"{r0['tp_values_rel']}")
     if not max(r0["cp_cg"] + r0["tp_cg"]) <= 1e-5:
         raise AssertionError(f"15 c): the fixed-length CG solves vs one "
                              f"process's: x, m under CP {r0['cp_cg']}, "
-                             f"under Megatron specs {r0['tp_cg']}")
+                             f"Megatron {r0['tp_cg']}")
+    # the blocks' matmuls split in halves; the tied head stays whole
+    head = 2 * 32 * 128 * LM["d_model"] * LM["vocab"]
+    if not (r0["tp_flops"] == r1["tp_flops"]
+            and 2 * r0["tp_flops"] == r0["one_flops"] + head):
+        raise AssertionError(f"15 c): forward FLOPs per rank "
+                             f"{r0['tp_flops']}, {r1['tp_flops']} against "
+                             f"one process's {r0['one_flops']}: the blocks "
+                             f"are not split in halves")
     ref = r0["c_ref_steps"]
     bounds = []
     for key, rels in (("cp_steps", r0["cp_rel"]), ("tp_steps", r0["tp_rel"])):
@@ -2433,39 +2513,50 @@ def phase_shard_decoder(r0, r1):
                                  f"from its parameters")
         bounds.append("<= 1e-5, the CG iterations agree" if same
                       else "no bound: the CG iterations differ")
-    if not (r0["tp_equal"] and r1["tp_equal"]):
-        raise AssertionError("15 c): the Megatron step differs from the "
-                             "step with replicated weights")
     launches = sum(launches_of("15 c)", r, "cp_launches", "cp_steps")
                    + launches_of("15 c)", r, "tp_launches", "tp_steps")
-                   + launches_of("15 c)", r, "plain_launches", "plain_steps")
                    for r in (r0, r1))
+    tpv = r0["tp_values_rel"]
     print(f"15 c) the same two ranks ({wall:.1f} s), the "
           f"full-width decoder LM ({DENSE_LM_N:,} parameters, b32 x T128): "
           f"context parallel (batch_specs=P(None, 'model'), 64 + 64 "
           f"positions): loss, gradient, GGN matvec vs one process "
           f"{r0['cp_values_rel'][0]:.2e}, {r0['cp_values_rel'][1]:.2e}, "
-          f"{r0['cp_values_rel'][2]:.2e} (relative, norm-wise, <= 1e-5); a "
+          f"{r0['cp_values_rel'][2]:.2e} (relative, norm-wise, <= 1e-5); "
+          f"Megatron param_specs (qkv w block {r0['tp_block']} per rank; "
+          f"each rank computes {LM['n_heads'] // 2} of {LM['n_heads']} "
+          f"heads and {LM['d_ff'] // 2} of {LM['d_ff']} feed-forward "
+          f"columns per block, 2 gloo sums per block): loss, gradient, GGN "
+          f"and Hessian (one-shot) matvecs vs one process {tpv[0]:.2e}, "
+          f"{tpv[1]:.2e}, {tpv[2]:.2e}, {tpv[3]:.2e} (<= 1e-5), the ranks' "
+          f"gradients bitwise equal; forward FLOPs per rank "
+          f"{r0['tp_flops']:,} against one process's {r0['one_flops']:,} "
+          f"({r0['tp_flops'] / r0['one_flops']:.2%}: the blocks halved, the "
+          f"tied head whole); peak requested bytes of one gradient + build "
+          f"+ GGN matvec per rank {gib(r0['tp_peak']):.3f} / "
+          f"{gib(r1['tp_peak']):.3f} GiB partitioned, "
+          f"{gib(r0['plain_peak']):.3f} / {gib(r1['plain_peak']):.3f} GiB "
+          f"with replicated weights (param_specs=None), one process "
+          f"{gib(r0['one_peak']):.3f} GiB; GGN matvec "
+          f"{r0['tp_mv_ms']:.1f} ms partitioned (gloo on one card, host "
+          f"clock, rank 0) against one process's {r0['one_mv_ms']:.1f} ms; a "
           f"{CG_CHECK_ITERS}-iteration CG solve (no stop) of the start's "
           f"system on the ranks' blocks vs one process's: iterate "
           f"{r0['cp_cg'][0]:.2e}, m-history {r0['cp_cg'][1]:.2e} under CP, "
-          f"{r0['tp_cg'][0]:.2e}, {r0['tp_cg'][1]:.2e} under the Megatron "
-          f"specs (norm-wise, <= 1e-5); 1 CP "
-          f"step: CG iterations {[s['iters'] for s in r0['cp_steps']]} "
-          f"(one process's first {ref[0]['iters']}), the first step's "
-          f"parameters from one process's hf_step {r0['cp_rel'][0]:.2e} "
-          f"({bounds[0]}), losses "
+          f"{r0['tp_cg'][0]:.2e}, {r0['tp_cg'][1]:.2e} under Megatron "
+          f"(norm-wise, <= 1e-5); 1 CP step: CG iterations "
+          f"{[s['iters'] for s in r0['cp_steps']]} (one process's first "
+          f"{ref[0]['iters']}), parameters from one process's hf_step "
+          f"{r0['cp_rel'][0]:.2e} ({bounds[0]}), losses "
           f"{[(round(s['init'], 6), round(s['final'], 6)) for s in r0['cp_steps']]}; "
-          f"Megatron param_specs (qkv w block {r0['tp_block']} per rank) 1 "
-          f"step: {r0['tp_steps'][0]['iters']} CG iterations, bit for bit "
-          f"the step with replicated weights, parameters "
-          f"{r0['tp_rel'][0]:.2e} from one process's ({bounds[1]}); replicas "
-          f"bitwise equal; step ms CP "
-          f"{[round(s['ms'], 1) for s in r0['cp_steps']]}, TP "
-          f"{round(r0['tp_steps'][0]['ms'], 1)}, replicated "
-          f"{round(r0['plain_steps'][0]['ms'], 1)}, one process "
-          f"{ref[0]['ms']:.1f}; launches "
-          f"{launches} = the ranks' CG iterations")
+          f"1 Megatron step: {r0['tp_steps'][0]['iters']} CG iterations, "
+          f"parameters {r0['tp_rel'][0]:.2e} from one process's "
+          f"({bounds[1]}), loss {r0['tp_steps'][0]['init']:.6f} -> "
+          f"{r0['tp_steps'][0]['final']:.6f}; replicas bitwise equal; step "
+          f"ms CP {[round(s['ms'], 1) for s in r0['cp_steps']]}, Megatron "
+          f"{round(r0['tp_steps'][0]['ms'], 1)}, one process "
+          f"{ref[0]['ms']:.1f}; launches {launches} = the ranks' CG "
+          f"iterations")
     return launches
 
 
@@ -2524,6 +2615,7 @@ def phase_f2(r0):
 
 MODEL_AXIS_EXAMPLES = (
     ("run_sharded.py", ["--tp"], "done."),
+    ("run_sharded.py", ["--megatron"], "done."),
     ("run_context_parallel.py", ["--tiny"],
      "next-token loss down under sequence splitting; done."),
     ("run_moe_lm.py", ["--ep", "--tiny"],
@@ -2531,7 +2623,7 @@ MODEL_AXIS_EXAMPLES = (
 
 
 def check_model_axis_examples(handles):
-    """15 f): the three model-axis examples, started beside 15 b-e; returns
+    """15 f): the four model-axis examples, started beside 15 b-e; returns
     their launches."""
     launches = 0
     for (script, flags, done), handle in zip(MODEL_AXIS_EXAMPLES, handles):
@@ -2545,7 +2637,7 @@ def check_model_axis_examples(handles):
         n = example_launches(script, out, 2)
         launches += n
         print(f"15 f) {script} {' '.join(flags)} --backend gloo under "
-              f"torch.distributed.run --nproc-per-node 2 (the three started "
+              f"torch.distributed.run --nproc-per-node 2 (the four started "
               f"with 15 b-e): exit 0, read {wall:.1f} s after its start, "
               f"{len(steps)} steps printed once (rank 0), launches {n} = "
               f"both ranks' CG iterations")
@@ -2695,14 +2787,6 @@ def pipe_rank(rank, world, port, out_path):
     v = torch.randn(ravel.dim, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(6))
     rec = {"rank": rank}
-
-    def hessian_matvec(model):
-        # one-shot, forward over reverse (the CPU tests hold the linearized
-        # form through the schedule)
-        return ravel.ravel(hvp(
-            lambda p: model.loss_outer(model.model_fn(p, tokens), tokens),
-            params, ravel.unravel(v)))
-
     t0 = time.perf_counter()
     with precision_ctx(config):
         loss, grad, mvp = optimizer._build_matvec_and_grad(
@@ -2710,7 +2794,9 @@ def pipe_rank(rank, world, port, out_path):
         mv = mvp(v)
         solve = fixed_cg(lambda u: mvp(u) + config.damping * u, -grad)
         del mvp
-        hv = hessian_matvec(pipe)
+        # one-shot (the CPU tests hold the linearized form through the
+        # schedule)
+        hv = hessian_matvec(pipe, params, tokens, ravel, v)
         outs = {f"M={m}": pipelined_decoder(mesh, m).model_fn(params, tokens)
                 for m in (1, 2, 8)}
         outs["M=4, remat"] = pipelined_decoder(
@@ -2731,7 +2817,7 @@ def pipe_rank(rank, world, port, out_path):
     step = functools.partial(optimizer.hf_step, fns=pipe, config=config,
                              ravel=ravel)
     ops.fused_cg_update.launches = 0
-    _, _, rec["steps"], flats = timed_steps(step, params, state, batch, 2,
+    _, _, rec["steps"], flats = timed_steps(step, params, state, batch, 1,
                                             ravel)
     rec["launches"] = ops.fused_cg_update.launches
     rec["peak"] = torch.cuda.max_memory_allocated()
@@ -2742,7 +2828,8 @@ def pipe_rank(rank, world, port, out_path):
                 fns, config, ravel, params, batch)
             rec["values_rel"] = [abs(float(loss) / float(r_loss) - 1),
                                  rel(grad, r_grad), rel(mv, r_mvp(v)),
-                                 rel(hv, hessian_matvec(fns))]
+                                 rel(hv, hessian_matvec(fns, params, tokens,
+                                                        ravel, v))]
             one = fixed_cg(lambda u: r_mvp(u) + config.damping * u, -r_grad)
             rec["cg_rel"] = [rel(solve.x, one.x),
                              rel(solve.m_hist, one.m_hist)]
@@ -2824,7 +2911,7 @@ def phase_pipe_two_ranks():
           f"{CG_CHECK_ITERS}-iteration CG solve (no stop) of the start's "
           f"system vs one process's: iterate {r0['cg_rel'][0]:.2e}, "
           f"m-history {r0['cg_rel'][1]:.2e} (<= 1e-5); forwards {fwd} (<= "
-          f"1e-5); 2 pipelined hf_steps: CG iterations "
+          f"1e-5); 1 pipelined hf_step: CG iterations "
           f"{[s['iters'] for s in r0['steps']]} (one process's first "
           f"{ref['iters']}), the first step's parameters from one process's "
           f"{r0['step_rel']:.2e} ({bound}), losses "

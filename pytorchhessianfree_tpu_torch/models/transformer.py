@@ -29,6 +29,23 @@ masks causally against global positions, and :func:`next_token_loss`
 scores the rank's positions against the next tokens, across the shard
 boundary, as its share of the mean over all ``N (T - 1)`` predictions.
 
+Tensor parallelism (:mod:`~..parallel.sharded` under Megatron
+``param_specs``, read from :func:`~..parallel.collectives.tensor_axis`):
+the ``M`` ranks run one replicated program and split each block's work.
+Rank ``m`` computes heads ``[m H / M, (m + 1) H / M)``: columns ``[m d /
+M, (m + 1) d / M)`` of each of Q, K and V of the fused ``qkv`` weight and
+bias, attention on those heads, and rows ``[m d / M, (m + 1) d / M)`` of
+``proj.w``; and columns ``[m d_ff / M, (m + 1) d_ff / M)`` of ``ff1`` (w and
+b) with the matching rows of ``ff2.w``.  Each sub-layer's partial ``[N, T,
+d]`` is summed over the axis by
+:func:`~..parallel.collectives.reduce_from_axis` before its output bias is
+added; the layernormed input and each whole weight enter through
+:func:`~..parallel.collectives.copy_to_axis` before they are sliced, so
+their cotangents are summed over the axis and every rank gets the whole
+gradient.  A head count or ``d_ff`` that ``M`` does not divide keeps that
+sub-layer whole on every rank; the embeddings, ``pos`` and the head are
+always whole.
+
 ``scan_layers`` is a layout knob of the JAX package (it stacks the blocks'
 weights for one ``lax.scan``); PyTorch loops over the blocks either way, with
 the same numbers, so it is accepted and otherwise ignored.  ``remat=True``
@@ -176,18 +193,43 @@ def _chunked_attention(q, k, v, causal: bool, chunk: int, offset: int = 0):
     return torch.cat(outs, dim=2)
 
 
+def _tensor_split(count: int) -> Optional[collectives.Axis]:
+    """The tensor axis (:func:`~..parallel.collectives.tensor_axis`) when
+    its ranks share ``count`` heads or feed-forward columns evenly; else
+    ``None``, and the sub-layer computes them all on every rank."""
+    tp = collectives.tensor_axis()
+    if tp is None or tp.size == 1 or count % tp.size:
+        return None
+    return tp
+
+
 def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
     """Pre-LN multi-head attention with residual: [N, T, d] -> [N, T, d].
-    Shared by the dense block and the MoE block (:mod:`.moe`)."""
+    Shared by the dense block and the MoE block (:mod:`.moe`).  Under a
+    tensor axis this rank computes its heads only (module docstring)."""
     N, T, d_model = x.shape
     d_head = d_model // n_heads
 
     h = _layernorm(blk["ln1"], x)
-    qkv = _apply_dense(blk["qkv"], h)  # [N, T, 3*d]
-    q, k, v = torch.split(qkv, d_model, dim=-1)
+    tp = _tensor_split(n_heads)
+    if tp is None:
+        local_heads = n_heads
+        qkv = _apply_dense(blk["qkv"], h)  # [N, T, 3*d]
+    else:
+        # the fused [d, 3d] weight holds Q, K and V at multiples of d, so
+        # this rank's heads are one column range of each
+        local_heads = n_heads // tp.size
+        width = local_heads * d_head
+        h = collectives.copy_to_axis(h, tp)
+        w = collectives.copy_to_axis(blk["qkv"]["w"], tp)
+        b = collectives.copy_to_axis(blk["qkv"]["b"], tp)
+        w = w.reshape(d_model, 3, tp.size, width)[:, :, tp.rank]
+        b = b.reshape(3, tp.size, width)[:, tp.rank]
+        qkv = h @ w.reshape(d_model, 3 * width) + b.reshape(3 * width)
+    q, k, v = torch.split(qkv, local_heads * d_head, dim=-1)
 
-    def heads(t):  # [N, T, d] -> [N, H, T, d_head]
-        return t.reshape(N, T, n_heads, d_head).permute(0, 2, 1, 3)
+    def heads(t):  # [N, T, h * d_head] -> [N, h, T, d_head]
+        return t.reshape(N, T, local_heads, d_head).permute(0, 2, 1, 3)
 
     q, k, v = heads(q), heads(k), heads(v)
     seq = collectives.sequence_axis()
@@ -200,16 +242,39 @@ def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
         out = _chunked_attention(q, k, v, causal, attn_chunk, offset)
     else:
         out = _attend(q, k, v, causal, offset)
-    out = out.permute(0, 2, 1, 3).reshape(N, T, d_model)
-    return x + _apply_dense(blk["proj"], out)
+    out = out.permute(0, 2, 1, 3).reshape(N, T, local_heads * d_head)
+    if tp is None:
+        return x + _apply_dense(blk["proj"], out)
+    rows = collectives.copy_to_axis(blk["proj"]["w"], tp).narrow(
+        0, tp.rank * out.shape[-1], out.shape[-1])
+    return x + (collectives.reduce_from_axis(out @ rows, tp)
+                + blk["proj"]["b"])
+
+
+def _mlp_sublayer(blk, x):
+    """Pre-LN GELU feed-forward with residual: [N, T, d] -> [N, T, d].
+    Under a tensor axis this rank computes its ``d_ff / M`` columns of
+    ``ff1`` and the matching rows of ``ff2`` (module docstring)."""
+    h = _layernorm(blk["ln2"], x)
+    d_ff = blk["ff1"]["w"].shape[-1]
+    tp = _tensor_split(d_ff)
+    if tp is None:
+        h = F.gelu(_apply_dense(blk["ff1"], h), approximate="tanh")
+        return x + _apply_dense(blk["ff2"], h)
+    cols = d_ff // tp.size
+    start = tp.rank * cols
+    h = collectives.copy_to_axis(h, tp)
+    w1 = collectives.copy_to_axis(blk["ff1"]["w"], tp).narrow(1, start, cols)
+    b1 = collectives.copy_to_axis(blk["ff1"]["b"], tp).narrow(0, start, cols)
+    w2 = collectives.copy_to_axis(blk["ff2"]["w"], tp).narrow(0, start, cols)
+    h = F.gelu(h @ w1 + b1, approximate="tanh")
+    return x + (collectives.reduce_from_axis(h @ w2, tp) + blk["ff2"]["b"])
 
 
 def _block(blk, x, n_heads: int, causal: bool = False, attn_chunk=None):
     """One pre-LN attention + MLP residual block: [N, T, d] -> [N, T, d]."""
     x = _attention_sublayer(blk, x, n_heads, causal, attn_chunk)
-    h = _layernorm(blk["ln2"], x)
-    h = F.gelu(_apply_dense(blk["ff1"], h), approximate="tanh")
-    return x + _apply_dense(blk["ff2"], h)
+    return _mlp_sublayer(blk, x)
 
 
 def stack_blocks(blocks):

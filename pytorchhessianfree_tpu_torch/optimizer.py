@@ -1136,7 +1136,9 @@ class HessianFree:
         data_axis / model_axis: the mesh's axis names.
         param_specs: tree prefix of :class:`~.parallel.mesh.PartitionSpec`
             splitting the weights over the mesh (tensor and expert
-            parallelism); needs a mesh with a model axis.
+            parallelism; transformer blocks in the Megatron layout also
+            split their compute, :mod:`.parallel.sharded`); needs a mesh
+            with a model axis.
         batch_specs: tree prefix of specs placing the batch per leaf
             (context parallelism: tokens ``[N, T]`` under
             ``PartitionSpec(None, "model")``); needs a mesh with a model

@@ -60,9 +60,9 @@ exact, except that a ``-0.0`` block comes back as ``+0.0``.  On an axis of
 one rank every collective is the identity and calls nothing.
 
 A model reads the axes a step runs under through :func:`batch_axis`,
-:func:`sequence_axis` and :func:`expert_axis`; the steps set them with
-:func:`axes`.  No collective is wrapped in a ``try``: a rank that fails
-leaves the others to the group's timeout.
+:func:`sequence_axis`, :func:`expert_axis` and :func:`tensor_axis`; the
+steps set them with :func:`axes`.  No collective is wrapped in a
+``try``: a rank that fails leaves the others to the group's timeout.
 """
 
 from __future__ import annotations
@@ -337,6 +337,7 @@ class _Axes(NamedTuple):
     batch: Optional[Axis] = None
     sequence: Optional[Axis] = None
     expert: Optional[Axis] = None
+    tensor: Optional[Axis] = None
 
 
 _axes = _Axes()
@@ -344,7 +345,7 @@ _axes = _Axes()
 
 @contextlib.contextmanager
 def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
-         expert: Optional[Axis] = None):
+         expert: Optional[Axis] = None, tensor: Optional[Axis] = None):
     """Run the body with these axes visible to the model's forward:
 
     - ``batch``: the batch's rows are split over it, and batch statistics
@@ -352,9 +353,13 @@ def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
     - ``sequence``: the sequence axis of a decoder's tokens is split over
       it (context parallelism, :mod:`~..models.transformer`);
     - ``expert``: a MoE layer's experts are split over it (expert
-      parallelism, :mod:`~..models.moe`)."""
+      parallelism, :mod:`~..models.moe`);
+    - ``tensor``: a transformer block's heads and feed-forward columns are
+      split over it, one replicated program whose sub-layers each end in a
+      :func:`reduce_from_axis` (Megatron tensor parallelism,
+      :mod:`~..models.transformer`)."""
     global _axes
-    saved, _axes = _axes, _Axes(batch, sequence, expert)
+    saved, _axes = _axes, _Axes(batch, sequence, expert, tensor)
     try:
         yield
     finally:
@@ -384,6 +389,10 @@ def sequence_axis() -> Optional[Axis]:
 
 def expert_axis() -> Optional[Axis]:
     return _axes.expert
+
+
+def tensor_axis() -> Optional[Axis]:
+    return _axes.tensor
 
 
 def batch_mean(x: torch.Tensor, dims) -> torch.Tensor:

@@ -28,10 +28,30 @@ port states what GSPMD chose freely:
 - **Parameters are replicated unless a spec shards them.**  A sharded
   leaf (``param_specs``) is kept as this rank's block between steps
   (:func:`~.mesh.shard_leaf`) and enters the step through an
-  ``all_gather`` (:func:`~.mesh.unshard_leaf`); the forward's compute on it
-  is then replicated over the model axis.  Megatron-partitioned matmuls,
-  which would split that compute too, are not ported (ROADMAP.md).
-- **Two models have a partitioned form.**  Under ``batch_specs`` that
+  ``all_gather`` (:func:`~.mesh.unshard_leaf`), so the step and its flat
+  space see whole weights.  The forward's compute on a gathered leaf is
+  replicated over the model axis, but for the Megatron layout below.
+- **Megatron tensor parallelism splits the transformer blocks' work.**
+  When every block of a list ``blocks`` of the parameter tree is in the
+  Megatron layout of tests/test_sharded.py:316-331 in each sub-layer it
+  has (attention: ``qkv.w`` under ``P(None, model)`` and ``proj.w`` under
+  ``P(model, None)``; MLP: ``ff1.w`` under ``P(None, model)`` and
+  ``ff2.w`` under ``P(model, None)``), the step sets the model axis as the
+  forward's tensor axis, one flag for the whole tree: each rank computes
+  its ``H / M`` heads and its ``d_ff / M`` feed-forward columns, with one
+  sum over the axis per sub-layer inside the forward
+  (:mod:`~..models.transformer`), under every derivative the optimizer
+  takes.  The loss stays whole and alike on every rank, as GSPMD's
+  partitioned forward gives it.  The specs decide, not the leaf names
+  alone: a tree in which some block lacks the layout is computed
+  gathered.
+  Still gathered and computed whole on every rank: the embeddings,
+  ``pos`` and the head (a vocab-parallel head is not ported); a sub-layer
+  whose head count or ``d_ff`` the axis does not divide; stacked blocks
+  (:func:`~..models.transformer.stack_blocks`, the pipeline's layout).
+  The step refuses the layout together with context or expert
+  parallelism over the same model axis.
+- **Two more partitioned forms.**  Under ``batch_specs`` that
   split the sequence axis of the tokens over the model axis (context
   parallelism), the decoders' attention gathers keys and values over it
   and each rank's loss is its positions' share
@@ -238,6 +258,27 @@ def _split_dims(specs, axis_name: str, stacked: bool):
     return dims
 
 
+def _megatron(specs, params, model_axis: str) -> bool:
+    """Whether the parameters hold transformer blocks (a list ``blocks`` of
+    per-layer dicts, each with ``qkv`` and ``proj`` or ``ff1`` and
+    ``ff2``), each in the Megatron layout in every sub-layer it has:
+    ``qkv.w`` and ``ff1.w`` split by column over the model axis, ``proj.w``
+    and ``ff2.w`` by row (module docstring)."""
+    layout = (P(None, model_axis), P(model_axis, None))
+    blocks = params.get("blocks") if isinstance(params, dict) else None
+    if not isinstance(blocks, list) or not blocks:
+        return False
+    for spec, blk in zip(specs["blocks"], blocks):
+        pairs = [pair for pair in (("qkv", "proj"), ("ff1", "ff2"))
+                 if isinstance(blk, dict) and pair[0] in blk
+                 and pair[1] in blk]
+        if not pairs or any(
+                tuple(tuple(spec[k]["w"] or ()) for k in pair) != layout
+                for pair in pairs):
+            return False
+    return True
+
+
 def _splits_experts(specs, model_axis: str) -> bool:
     """Whether an :class:`~.mesh.ExpertSpec` of the spec tree splits its
     experts over the model axis (:func:`~..models.moe.moe_param_specs`)."""
@@ -320,6 +361,8 @@ class _Plan:
             self._specs = _param_shardings(self.mesh, params,
                                            self.param_specs)
             self.experts = _splits_experts(self._specs, self.model_axis)
+            self.megatron = self.model.size > 1 and _megatron(
+                self._specs, params, self.model_axis)
         return self._specs
 
     def whole_params(self, params):
@@ -360,6 +403,12 @@ class _Plan:
             raise ValueError(
                 "Context and expert parallelism over one model axis are "
                 "not supported together.")
+        if self.megatron and (context or self.experts):
+            other = "Context" if context else "Expert"
+            raise ValueError(
+                f"{other} parallelism and Megatron-partitioned transformer "
+                f"blocks (tensor parallelism) over one model axis are not "
+                f"supported together.")
         data_split = self.data_axis is not None and 0 in _split_dims(
             specs, self.data_axis, self.stacked)
         data = _Reduce(self.mesh, self.data_axis, self.reduction) \
@@ -375,6 +424,7 @@ class _Plan:
             if data_split else None,
             sequence=self.model if context else None,
             expert=self.model if self.experts else None,
+            tensor=self.model if self.megatron else None,
         )
         local = _place_batch(self.mesh, batch, self.batch_specs,
                              self.default_s, self.stacked)

@@ -55,8 +55,8 @@ TOLS = {
     "model_only": (1e-8,), "rich": (1e-6,), "acc": (1e-8,),
     "loop": (1e-8,), "loop_ema": (1e-8,), "tp": (2e-6, 1e-5),
     "cp": (1e-8, 1e-6), "cp2d": (1e-8,), "acc_cp": (1e-8,),
-    "loop_cp": (1e-7,), "ep": (1e-8, 1e-6), "wrap": (1e-8,),
-    "wrap_cp": (1e-7,),
+    "loop_cp": (1e-7,), "ep": (1e-8, 1e-6), "wrap": (1e-8, 1e-8),
+    "wrap_cp": (1e-7, 1e-7), "wrap_tp": (2e-6, 1e-5),
 }
 
 
@@ -100,7 +100,7 @@ def draw(case):
     if case == "acc":
         params, x, y = _mlp_draw(18)
         return params, [(x[:16], y[:16]), (x[16:], y[16:])]
-    if case == "tp":
+    if case in ("tp", "wrap_tp"):
         params = j_init_transformer(num_classes=4, **_lm(0, 2))
         return params, [_enc_batch(60 + i) for i in range(2)]
     if case == "cp":
@@ -233,7 +233,7 @@ def jax_run(case, world):
         opt = jhf.HessianFree(
             params, model_fn=fns.model_fn, loss_outer=fns.loss_outer,
             config=config, pad_to_multiple=8, mesh=mesh,
-            batch_specs=kw["batch_specs"])
+            param_specs=kw["param_specs"], batch_specs=kw["batch_specs"])
         out.update(worker.wrapper_calls(opt, batches,
                                         precond=case == "wrap"))
     return out

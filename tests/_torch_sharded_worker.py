@@ -2,10 +2,11 @@
 
 Started by the ``tests/test_torch_sharded_*.py`` files::
 
-    python tests/_torch_sharded_worker.py RANK WORLD PORT PROBLEM.npz OUT_DIR CASES
+    python tests/_torch_sharded_worker.py RANK WORLD PORT PROBLEM.npz OUT_DIR CASES [DEVICE]
 
-Each rank joins a ``WORLD``-rank gloo group on ``localhost:PORT`` and forms
-a ``(data, model)`` mesh of shape ``(WORLD / 2, 2)``.  For every case named
+Each rank joins a ``WORLD``-rank gloo group on ``localhost:PORT`` (its
+tensors on ``DEVICE``, the CPU by default) and forms a ``(data, model)``
+mesh of shape ``(WORLD / 2, 2)``.  For every case named
 in the comma-separated ``CASES`` it rebuilds the case's model from the
 problem's leaves (written with numpy by the test, drawn by the JAX
 package), runs the case's builder of ``parallel/sharded.py`` (or the
@@ -13,7 +14,10 @@ package), runs the case's builder of ``parallel/sharded.py`` (or the
 parameters, the CG iterations and the losses to ``OUT_DIR/rank{RANK}.npz``.
 :data:`CASES` mirrors tests/test_sharded.py; the test runs the same cases
 through the JAX package's builders and through the port's one-process
-steps (``tests/_torch_sharded_parity.py``).  It imports no JAX.
+steps (``tests/_torch_sharded_parity.py``).  The suites of
+:data:`MEGATRON_SUITES` check what each rank computes under Megatron
+tensor parallelism against one process's values in the rank itself.  It
+imports no JAX.
 """
 
 import os
@@ -25,6 +29,7 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 import pytorchhessianfree_tpu_torch as thf  # noqa: E402
 from pytorchhessianfree_tpu_torch.models import (  # noqa: E402
@@ -43,9 +48,13 @@ from pytorchhessianfree_tpu_torch.models.moe import (  # noqa: E402
     moe_decoder_lm_apply,
     moe_param_specs,
 )
-from pytorchhessianfree_tpu_torch.parallel import sharded  # noqa: E402
+from pytorchhessianfree_tpu_torch.parallel import (  # noqa: E402
+    collectives,
+    sharded,
+)
 from pytorchhessianfree_tpu_torch.parallel.distributed import (  # noqa: E402
     initialize_distributed,
+    rank_device,
 )
 from pytorchhessianfree_tpu_torch.parallel.mesh import (  # noqa: E402
     PartitionSpec as P,
@@ -53,6 +62,7 @@ from pytorchhessianfree_tpu_torch.parallel.mesh import (  # noqa: E402
 )
 from pytorchhessianfree_tpu_torch.utils.flatten import (  # noqa: E402
     tree_flatten,
+    tree_map,
     tree_unflatten,
 )
 
@@ -94,6 +104,8 @@ CASES = {
     "wrap": dict(model="mlp", steps=2, builder="wrapper"),
     "wrap_cp": dict(model="dec", steps=2, builder="wrapper", cg=20,
                     batch_specs=P(None, "model")),
+    "wrap_tp": dict(model="enc", steps=2, builder="wrapper",
+                    param_specs=MEGATRON),
 }
 
 
@@ -226,7 +238,7 @@ def run_case(case, z, meshes, out):
         out[f"{case}/init_loss"] = stats.init_loss.numpy()
         if spec.get("ema"):  # the EMA diagonal, whole
             out[f"{case}/ema"] = sharded.ModelShard(
-                sharded.collectives.mesh_axis(mesh, "model"),
+                collectives.mesh_axis(mesh, "model"),
                 ravel.dim).gather(res[3].diag).numpy()
         out[f"{case}/x0_shape"] = np.array(res[1].x0.shape)
     else:
@@ -235,10 +247,13 @@ def run_case(case, z, meshes, out):
 
 def wrapper_calls(opt, batches, precond=True):
     """The calls of tests/test_sharded.py's wrapper tests, here and in the
-    test: steps, a diagonal, an accumulated step."""
+    test: steps (the whole parameters after each), a diagonal, an
+    accumulated step."""
+    rows = []
     for batch in batches:
         opt.step(batch)
-    res = {"params": np.asarray(opt.ravel.ravel(opt.params))[None],
+        rows.append(np.asarray(opt.ravel.ravel(opt.params)))
+    res = {"params": np.stack(rows),
            "num_cg_iters": np.array(opt.history["num_cg_iters"])}
     if precond:
         x, y = batches[0]
@@ -253,11 +268,14 @@ def wrapper_case(case, spec, params, batches, fns, config, mesh, out):
     opt = thf.HessianFree(
         params, model_fn=fns.model_fn, loss_outer=fns.loss_outer,
         config=config, pad_to_multiple=8, mesh=mesh,
+        param_specs=spec.get("param_specs"),
         batch_specs=spec.get("batch_specs"))
     res = wrapper_calls(opt, batches, precond=case == "wrap")
     for k, v in res.items():
         out[f"{case}/{k}"] = v
     out[f"{case}/x0_shape"] = np.array(opt.state.x0.shape)
+    if case == "wrap_tp":
+        return
     errors = []
     if case == "wrap":
         try:
@@ -317,23 +335,234 @@ def placement(meshes, out):
     out["place/stacked"] = got[0].numpy()
 
 
+# -- Megatron tensor parallelism: what each rank computes -----------------
+
+_tp_sums = [0]
+
+
+def _count_tp_sums():
+    """Count the forward's sums over a tensor axis (each partitioned
+    sub-layer calls ``collectives.reduce_from_axis`` once per forward)."""
+    reduce = collectives.reduce_from_axis
+
+    def counted(x, axis):
+        if collectives.tensor_axis() is not None:
+            _tp_sums[0] += 1
+        return reduce(x, axis)
+
+    collectives.reduce_from_axis = counted
+
+
+def tiny_megatron_model(kind, dtype=torch.float64, device="cpu"):
+    """``(params, fns, batch, remat)`` of the derivative checks: the
+    encoder of tests/test_sharded.py, the causal decoder LM with full or
+    chunked attention or rematerialized blocks, the MoE LM (its attention
+    split, its experts whole), and two head counts the axis does not
+    divide (``heads1``: 1 head, its MLP still split; ``odd``: 3 heads and
+    d_ff 33, nothing split)."""
+    g = torch.Generator().manual_seed(7)
+    dims = dict(TINY_LM)
+    heads, kw = 4, {}
+    if kind == "odd":
+        dims.update(d_model=12, d_ff=33)
+        heads = 3
+    if kind in ("enc", "heads1", "odd"):
+        params = init_transformer(g, n_layers=2, num_classes=4, dtype=dtype,
+                                  **dims)
+        x = torch.randint(0, 12, (16, 8), generator=g)
+        y = torch.randint(0, 4, (16,), generator=g)
+        heads = 1 if kind == "heads1" else heads
+        fns = thf.HFModelFns(
+            model_fn=lambda p, t: transformer_apply(p, t, n_heads=heads),
+            loss_outer=cross_entropy_loss)
+    elif kind == "moe":
+        params = init_moe_decoder_lm(g, n_layers=2, n_experts=4,
+                                     dtype=dtype, **dims)
+        x = y = torch.randint(0, 12, (4, 8), generator=g)
+        fns = thf.HFModelFns(
+            model_fn=lambda p, t: moe_decoder_lm_apply(p, t, n_heads=4),
+            loss_outer=next_token_loss)
+    else:
+        params = init_decoder_lm(g, n_layers=2, dtype=dtype, **dims)
+        x = torch.randint(0, 12, (4, 8), generator=g)
+        y = x
+        kw = {"dec_chunk": dict(attn_chunk=4),
+              "dec_remat": dict(remat=True)}.get(kind, {})
+        fns = thf.HFModelFns(
+            model_fn=lambda p, t: decoder_lm_apply(p, t, n_heads=4, **kw),
+            loss_outer=next_token_loss)
+    params = tree_map(lambda t: t.to(device), params)
+    return params, fns, (x.to(device), y.to(device)), bool(kw.get("remat"))
+
+
+def megatron_values(fns, params, batch, curvature, remat, axis, v):
+    """Loss, flat gradient and one curvature matvec (GGN or Hessian) with
+    the forward's tensor axis ``axis`` (``None``: one process's)."""
+    ravel = thf.TrainableRavel(params, pad_to_multiple=8)
+    config = thf.HFConfig(damping=1.0, curvature_opt=curvature, remat=remat)
+    with collectives.axes(tensor=axis):
+        loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
+            fns, config, ravel, params, batch)
+        return [loss.reshape(1), grad, mvp(v)]
+
+
+# the kinds each model-axis group of ranks checks, of about equal cost
+MEGATRON_GROUPS = (("enc", "dec_chunk", "heads1"),
+                   ("dec", "dec_remat", "moe", "odd"))
+
+
+def megatron_curvatures(kind):
+    """The matvecs checked per kind: GGN and Hessian on the encoder, the
+    decoder LM and its one-shot rematerialized form; GGN alone on the
+    chunked attention (the same linearized path as the decoder's), the
+    MoE LM and where the axis cannot split the heads (``heads1``,
+    ``odd``)."""
+    return ("ggn", "hessian") if kind in ("enc", "dec", "dec_remat") \
+        else ("ggn",)
+
+
+def megatron_derivatives(mesh, out):
+    """Loss, gradient and GGN and Hessian matvecs of the partitioned
+    forward per model kind, then one process's, the ranks of the model
+    axis taking turns (no collective is left to wait on): each model-axis
+    group of ranks takes one of :data:`MEGATRON_GROUPS`."""
+    axis = collectives.mesh_axis(mesh, "model")
+    checks = []
+    for kind in MEGATRON_GROUPS[mesh.get_local_rank("data")]:
+        params, fns, batch, remat = tiny_megatron_model(kind)
+        v = torch.randn(thf.TrainableRavel(params, pad_to_multiple=8).dim,
+                        dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(3))
+        for curvature in megatron_curvatures(kind):
+            key = f"mega/{kind}/{curvature}"
+            args = (fns, params, batch, curvature, remat)
+            checks.append((key, args, v))
+            _tp_sums[0] = 0
+            got = megatron_values(*args, axis, v)
+            out[f"{key}/sums"] = np.array(_tp_sums[0])
+            for name, value in zip(("loss", "grad", "mvp"), got):
+                out[f"{key}/{name}"] = value.numpy()
+    for key, args, v in checks[axis.rank::axis.size]:
+        for name, value in zip(("loss", "grad", "mvp"),
+                               megatron_values(*args, None, v)):
+            out[f"{key}/{name}_one"] = value.numpy()
+
+
+class _Shapes(TorchDispatchMode):
+    """The output shapes of the ops a forward runs, by op name."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        result = func(*args, **(kwargs or {}))
+        if isinstance(result, torch.Tensor):
+            self.seen.add(f"{func.overloadpacket.__name__}"
+                          f"{tuple(result.shape)}")
+        return result
+
+
+def megatron_split(mesh, out):
+    """What one rank computes under the tensor axis against one process:
+    the FLOPs of a block and of the encoder's forward
+    (``FlopCounterMode``), and the output shapes of the block's ops."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pytorchhessianfree_tpu_torch.models.transformer import _block
+
+    axis = collectives.mesh_axis(mesh, "model")
+    params, fns, (x, _), _ = tiny_megatron_model("enc")
+    h = torch.randn(16, 8, 16, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5))
+    blk = params["blocks"][0]
+    for name, ax in (("tp", axis), ("one", None)):
+        with collectives.axes(tensor=ax):
+            with FlopCounterMode(display=False) as block_flops:
+                _block(blk, h, n_heads=4)
+            with FlopCounterMode(display=False) as forward_flops:
+                fns.model_fn(params, x)
+            with _Shapes() as shapes:
+                _block(blk, h, n_heads=4)
+        out[f"split/{name}/block_flops"] = np.array(
+            block_flops.get_total_flops())
+        out[f"split/{name}/forward_flops"] = np.array(
+            forward_flops.get_total_flops())
+        out[f"split/{name}/shapes"] = np.array(sorted(shapes.seen))
+
+
+def megatron_refusals(mesh, out):
+    """Megatron blocks with context parallelism (the decoder LM under
+    ``batch_specs=P(None, "model")``) and with expert parallelism (the MoE
+    LM's expert specs with Megatron attention) over one model axis."""
+    errors = []
+    params, fns, config = model("dec")
+    specs = {"embed": P(), "pos": P(), "ln_f": P(),
+             "blocks": MEGATRON["blocks"]}
+    tokens = torch.randint(0, 12, (4, 8),
+                           generator=torch.Generator().manual_seed(1))
+    moe, moe_fns, _ = model("moe")
+    moe_specs = moe_param_specs(2)
+    for blk in moe_specs["blocks"]:
+        blk.update(qkv={"w": COL, "b": P("model")},
+                   proj={"w": ROW, "b": P()})
+    for p, f, kw in ((params, fns, dict(param_specs=specs,
+                                        batch_specs=P(None, "model"))),
+                     (moe, moe_fns, dict(param_specs=moe_specs))):
+        ravel = thf.TrainableRavel(p, pad_to_multiple=8)
+        step = sharded.make_sharded_hf_step(f, config, ravel, mesh, **kw)
+        try:
+            step(p, thf.init_state(ravel, config), (tokens, tokens))
+        except ValueError as e:
+            errors.append(str(e))
+    out["refuse/errors"] = np.array(errors)
+
+
+def megatron_on_device(mesh, out):
+    """The encoder's forward and GGN matvec of the partitioned forward and
+    of one process's in f32 on the rank's device."""
+    device = rank_device()
+    axis = collectives.mesh_axis(mesh, "model")
+    params, fns, batch, _ = tiny_megatron_model("enc", torch.float32,
+                                                device)
+    n = thf.TrainableRavel(params, pad_to_multiple=8).dim
+    v = torch.randn(n, generator=torch.Generator().manual_seed(3)).to(device)
+    for name, ax in (("tp", axis), ("one", None)):
+        with collectives.axes(tensor=ax):
+            logits = fns.model_fn(params, batch[0])
+        _, _, mv = megatron_values(fns, params, batch, "ggn", False, ax, v)
+        out[f"card/{name}/logits"] = logits.cpu().numpy()
+        out[f"card/{name}/mvp"] = mv.cpu().numpy()
+
+
+MEGATRON_SUITES = {"mega": megatron_derivatives, "split": megatron_split,
+                   "refuse": megatron_refusals, "card": megatron_on_device}
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     problem_path, out_dir, cases = sys.argv[4:7]
+    device = sys.argv[7] if len(sys.argv) > 7 else "cpu"
     torch.set_num_threads(1)
-    initialize_distributed(f"localhost:{port}", world, rank, device="cpu")
+    initialize_distributed(f"localhost:{port}", world, rank, backend="gloo",
+                           device=device)
     meshes = {"2d": make_mesh(axis_names=("data", "model"),
                               shape=(world // 2, 2)),
               "model": make_mesh(axis_names=("model",))}
-    z = dict(np.load(problem_path))
+    z = dict(np.load(problem_path)) if os.path.exists(problem_path) else {}
+    _count_tp_sums()
     out = {}
     for case in cases.split(","):
+        _tp_sums[0] = 0
         if case == "validation":
             validation(meshes, out)
         elif case == "placement":
             placement(meshes, out)
+        elif case in MEGATRON_SUITES:
+            MEGATRON_SUITES[case](meshes["2d"], out)
         else:
             run_case(case, z, meshes, out)
+            out[f"{case}/tp_sums"] = np.array(_tp_sums[0])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
     print(f"rank {rank}/{world} [{cases}]: ok")

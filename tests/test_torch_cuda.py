@@ -5,8 +5,8 @@ the peak memory that rematerialization saves on the card, and the Nystrom
 sketch, Lanczos/SLQ, the batched select modes, the reduced-precision
 iterate store and checkpoints on the card against the CPU, and the
 data-parallel pieces on a 1-rank NCCL group (the prefetcher's sharding, a
-DP step equal to ``hf_step``), and the collectives and the pipeline's probe
-on two gloo ranks sharing the card.
+DP step equal to ``hf_step``), and the collectives, the pipeline's probe
+and the Megatron-partitioned forward on two gloo ranks sharing the card.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -711,3 +711,27 @@ def test_pipeline_probe_on_card_matches_the_sequential_blocks(cuda, tmp_path):
     for key, want in worker.probe_expected(2).items():
         np.testing.assert_allclose(np.stack([r[key] for r in got]), want,
                                    rtol=1e-12, atol=1e-12, err_msg=key)
+
+
+def test_megatron_forward_and_matvec_on_card_match_one_process(cuda,
+                                                               tmp_path):
+    """Two gloo ranks sharing ``cuda:0``: tests/test_sharded.py's encoder
+    through the Megatron-partitioned forward (2 of 4 heads and 16 of 32
+    feed-forward columns per rank) in f32, its logits and GGN matvec within
+    1e-5 of one process's (norm-wise), the ranks' matvecs bitwise equal."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import _torch_dp_worker as dp_worker
+    import _torch_sharded_worker as worker
+
+    procs = dp_worker.spawn_script(
+        worker.__file__,
+        [str(tmp_path / "none.npz"), str(tmp_path), "card", "cuda:0"], 2)
+    got = dp_worker.collect(procs, tmp_path)
+    for r in got:
+        for name in ("logits", "mvp"):
+            a, b = r[f"card/tp/{name}"], r[f"card/one/{name}"]
+            assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), name
+    np.testing.assert_array_equal(got[0]["card/tp/mvp"],
+                                  got[1]["card/tp/mvp"])

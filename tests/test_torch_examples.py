@@ -1,6 +1,6 @@
 """The port's examples (``examples_torch/``): the CPU-sized ones run end to
 end with ``--cpu --tiny``, each in its own process with its own timeout,
-``run_allcnnc_cifar100.py --dp``, ``run_sharded.py --tp``,
+``run_allcnnc_cifar100.py --dp``, ``run_sharded.py --tp`` and ``--megatron``,
 ``run_context_parallel.py`` and ``run_moe_lm.py --ep`` on two gloo ranks
 and ``run_pipeline_parallel.py`` on four under ``torch.distributed.run``;
 every example imports with ``jax`` blocked; without ``--cpu`` an example
@@ -46,6 +46,11 @@ MODEL_AXIS_RUNS = {
                                        "routed experts; done."),
 }
 
+# Megatron tensor parallelism on two ranks
+MEGATRON_RUN = LAUNCH + ["run_sharded.py", "--cpu", "--megatron"]
+MEGATRON_DONE = ("each rank computes 2 of 4 heads and 32 of 64 "
+                 "feed-forward columns per block")
+
 # the pipeline example: four ranks, one per stage
 PIPELINE_RUN = ["-m", "torch.distributed.run", "--standalone",
                 "--nproc-per-node", "4", "run_pipeline_parallel.py", "--cpu"]
@@ -62,6 +67,7 @@ def started():
     runs["dp"] = DP_RUN
     for name, (flags, _) in MODEL_AXIS_RUNS.items():
         runs[f"2x-{name}"] = LAUNCH + [f"{name}.py", "--cpu", *flags]
+    runs["megatron"] = MEGATRON_RUN
     runs["pipeline"] = PIPELINE_RUN
     procs = {
         name: subprocess.Popen(
@@ -124,6 +130,27 @@ def test_cpu_model_axis_example_runs(started, name):
     steps = [line for line in out.splitlines() if line.startswith("step ")]
     assert steps and len(steps) == len(set(steps)), out[-2000:]
     assert out.count(MODEL_AXIS_RUNS[name][1]) == 1
+
+
+def test_cpu_megatron_example_runs(started):
+    """``run_sharded.py --cpu --megatron`` on two gloo ranks: exit 0, four
+    steps with finite losses printed once (rank 0), the blocks' share."""
+    proc = started["megatron"]
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        pytest.fail(f"the --megatron example did not finish within "
+                    f"{TIMEOUT} s")
+    assert proc.returncode == 0, err[-3000:]
+    assert out.count(MEGATRON_DONE) == 1 and out.count("done.") == 1, \
+        out[-2000:]
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert len(steps) == len(set(steps)) == 4, out[-2000:]
+    for line in steps:
+        before, after = (float(v) for v in
+                         line.split("loss ")[1].split(" |")[0].split(" -> "))
+        assert after <= before and np.isfinite(after), line
 
 
 def test_cpu_pipeline_example_runs(started):

@@ -2,7 +2,9 @@
 encoder classifier of tests/test_sharded.py under its Megatron
 ``param_specs`` (tests/test_sharded.py:316-331: QKV and FF1 split by
 column, proj and FF2 by row, over the model axis), in f64.  Each rank
-keeps its blocks between steps and the step gathers them; 2 steps against
+keeps its blocks between steps and the step gathers them, and each rank's
+forward computes its heads and feed-forward columns (Megatron tensor
+parallelism, tests/test_torch_sharded_megatron.py); 2 steps against
 the JAX package's ``make_sharded_hf_step`` on a (2, 2) mesh and the port's
 one-process step, at 2e-6 then 1e-5: the trajectory moves by 6.7e-7 after
 one step under a 1e-15 perturbation of the start
@@ -37,6 +39,14 @@ def four_ranks(tmp_path_factory):
 @pytest.mark.parametrize("case", ["tp", "wrap_cp"])
 def test_tp_and_wrapper_match_jax_and_one_process(four_ranks, case):
     parity.check(four_ranks, case)
+
+
+def test_megatron_step_partitions_the_blocks(four_ranks):
+    """The Megatron specs set the model axis as the forward's tensor axis:
+    the step's forwards sum each sub-layer's partial over it."""
+    _, ranks = four_ranks
+    assert all(r["tp/tp_sums"] > 0 for r in ranks)
+    assert ranks[0]["wrap_cp/tp_sums"] == 0
 
 
 def test_megatron_blocks_are_kept_sharded(four_ranks):
