@@ -24,7 +24,7 @@ prints no ``ok`` line:
 4. CG on the card (kernel) against CG on the CPU (plain version) in f64;
 5. a narrow ResNet-18 HF step on the card against the same step on the CPU
    in f64;
-6. the main path: 2 Hessian-free steps of the full-width ResNet-18 (MNIST
+6. the main path: 1 Hessian-free step of the full-width ResNet-18 (MNIST
    shapes, batch 32, GGN, ``HFConfig(damping=1.0, cg_max_iter=50)``) in f32,
    with the kernel's launch count checked against the CG iterations, and
    the GGN matvec time;
@@ -77,8 +77,8 @@ prints no ``ok`` line:
     ``nn.Sequential`` with explicit "SAME" padding through ``module_fns``
     (phase 8's seed-0 weights, HWIO -> OIHW; batch 128, the NHWC batch's
     channels_last view as NCHW): loss, gradient and one GGN matvec within
-    rtol 1e-5 of ``allcnnc_apply`` (norm-wise), the matvec times, and 2 HF
-    steps on the adapter; d) ``format_solver_memory`` for ResNet-18 and
+    rtol 1e-5 of ``allcnnc_apply`` (norm-wise), the matvec times, and 1 HF
+    step on the adapter; d) ``format_solver_memory`` for ResNet-18 and
     All-CNN-C, and the estimate's f32 - bf16 iterate-store difference
     within 1 MiB of that of phase 12 f's measured peaks of requested bytes,
     its totals at most the allocated step peaks;
@@ -105,7 +105,7 @@ prints no ``ok`` line:
     with the EMA of the diagonal, finite and non-increasing, replicas equal
     bit for bit; d) ``examples_torch/run_allcnnc_cifar100.py --dp
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 2`` on
-    the card, started beside b) and c), exit 0 with finite losses.  Each
+    the card, started before a), exit 0 with finite losses.  Each
     rank counts its kernel launches, which must equal its CG iterations,
     and the parent adds them;
 15. the model axis (``parallel/sharded.py``), f32 with TF32 off and
@@ -132,11 +132,12 @@ prints no ``ok`` line:
     gradient + build + matvec beside the replicated-weights form's and one
     process's, and the gloo ms of a matvec; a 10-iteration CG solve of the
     start's system on the ranks' blocks within 1e-5 of one process's under
-    context parallelism and under the Megatron specs, and 1 step of each;
-    each first step within 1e-5 of one process's ``hf_step`` where their
-    CG iterations agree; d) the full-width MoE LM under ``moe_param_specs``
-    (4 of 8 experts per rank): loss and one GGN matvec within 1e-5 of one
-    process's, 1 step and each rank's peak memory; e) fault F2, on b's
+    context parallelism and under the Megatron specs, and 1 step of each
+    on the first 3 of the 6 blocks; each first step within 1e-5 of one
+    process's ``hf_step`` where their CG iterations agree; d) the
+    full-width MoE LM under ``moe_param_specs`` (4 of 8 experts per rank):
+    loss and one GGN matvec within 1e-5 of one process's, 1 step on the
+    first 2 of the 6 blocks and each rank's peak memory; e) fault F2, on b's
     ranks as a (data 2) mesh, ResNet-18 b32 as 2 x 16: the GSPMD names'
     reduced loss, gradient and GGN matvec (BatchNorm over both ranks' rows)
     against one process on the whole batch, in f64 (within 1e-10), in f32
@@ -146,8 +147,24 @@ prints no ``ok`` line:
     and ``--megatron``, ``run_context_parallel.py --tiny`` and
     ``run_moe_lm.py --ep --tiny`` under
     ``torch.distributed.run --nproc-per-node 2 --backend gloo``, started
-    beside b-e), each exit 0 with rank 0 printing alone.  Each rank counts
-    its kernel launches, which must equal its CG iterations;
+    before phase 12), each exit 0 with rank 0 printing alone; g) on b's
+    ranks,
+    where the model axis's roles meet: the full-width MoE LM under CP + EP
+    (``moe_param_specs`` and ``batch_specs=P(None, "model")``: attention
+    on each rank's 64 positions, the feed-forward routing all 4,096 tokens
+    as one process does, on the rank's 4 of 8 experts), 1 step (finite,
+    non-increasing, replicas bitwise, its CG iterations beside phase 11's,
+    ms and each rank's peak) and its loss, gradient and GGN matvec within
+    1e-5 of one process's, with the top-2 choices capacity drops (> 0);
+    the same values under Megatron attention + EP and for the decoder LM
+    under its Megatron specs + CP (the blocks computed gathered: the
+    forward ran under no tensor axis, each rank's forward FLOPs exactly
+    half of one process's; these are d's EP values and c's CP values,
+    which go through these plans); fault F3: the decoder LM's first EMA
+    empirical-Fisher diagonal under CP within 1e-5 of one process's
+    ``diag_EF`` on the whole sequence, with its ms and each rank's peak.
+    Each rank counts its kernel launches, which must equal its CG
+    iterations;
 16. pipeline parallelism (``parallel/pipeline.py``), phase 10's decoder LM,
     f32 with TF32 off and ``cudnn.deterministic`` on: a) NCCL on a 1-rank
     (stage 1) mesh, one microbatch: one pipelined ``hf_step`` equal to the
@@ -164,7 +181,7 @@ prints no ``ok`` line:
     tick's shift and of the blocks' cotangent sum, each rank's peak memory
     against one process's; c) ``examples_torch/run_pipeline_parallel.py
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 4``,
-    started beside b), exit 0 with the loss halved.  Each rank counts its
+    started before a), exit 0 with the loss halved.  Each rank counts its
     kernel launches, which must equal its CG iterations.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
@@ -172,7 +189,8 @@ trace of 5 matvecs.
 
 Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11, at the blocks of n / 2 that each rank
-of 15 b-d gives it and at the narrow examples' n of 15 f and 16 c (f32),
+of 15 b-d and g gives it and at the narrow examples' n of 15 f and 16 c
+(f32),
 and times it at each of those n beside its bound.  The ``kernels`` line
 gives K1's device time at the main path's n as ``ms``, with ``call_ms``
 (CUDA events around the call) and ``host_ms`` beside it, and the plain
@@ -197,6 +215,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -255,9 +274,16 @@ DENSE_LM_N = 19_505_152  # decoder LM parameters = flat dimension
 MOE_N = 107_717_632  # MoE decoder LM parameters = flat dimension
 PATH_N = {"ResNet-18": MAIN_N, "All-CNN-C": ALLCNNC_N,
           "decoder LM": DENSE_LM_N, "MoE LM": MOE_N}
-# each rank's block of a flat vector split over a model axis of 2 (15 b-d)
+# the depth of the sharded steps of 15 c (decoder LM) and 15 d (MoE LM,
+# EP alone), and their flat dimensions: cut to keep the script's time
+STEP_LAYERS = {"decoder LM": 3, "MoE LM": 2}
+CUT_N = {"decoder LM": 10_048_512, "MoE LM": 36_299_776}
+# each rank's block of a flat vector split over a model axis of 2 (15 b-d,
+# g)
 BLOCK_N = {f"{path} block": n // 2
            for path, n in PATH_N.items() if path != "All-CNN-C"}
+BLOCK_N.update({f"{path} ({STEP_LAYERS[path]} layers) block": n // 2
+                for path, n in CUT_N.items()})
 # the narrow examples of 15 f and 16 c: each one's TrainableRavel dim, per
 # rank of the model axis of 2 where the example shards the solver
 EXAMPLE_N = {"run_sharded.py --tp block": 256,
@@ -273,6 +299,7 @@ DEVICE_CALLS = 30  # profiled K1 calls per n
 # benchmarks/decoder_lm_bench.py and moe_lm_bench.py
 LM = dict(vocab=1024, d_model=512, n_heads=8, n_layers=6, d_ff=2048)
 RTOL_VEC = {torch.float32: 1e-6, torch.float64: 1e-13}  # FMA contraction
+PATH_CG = {}  # the CG iterations of a path's steps, for later phases
 RTOL_DOT = {torch.float32: 1e-5, torch.float64: 1e-12}  # summation order
 
 
@@ -643,7 +670,7 @@ def resnet_opt(params, **config):
 
 
 def phase_main():
-    """The main path: 2 HF steps of full-width ResNet-18/MNIST b32."""
+    """The main path: 1 HF step of full-width ResNet-18/MNIST b32."""
     opt, (x, y), gen = resnet_main_path()
     count = opt.ravel.unpadded_dim
     if opt.ravel.dim != MAIN_N:
@@ -651,7 +678,7 @@ def phase_main():
     print(f"main path: ResNet-18, {count} parameters, flat dim "
           f"{opt.ravel.dim}, batch 32 x 28x28x1, GGN, cg_max_iter=50, f32")
 
-    launches = run_steps(opt, (x, y), 2, "the main path")
+    launches = run_steps(opt, (x, y), 1, "the main path")
 
     # GGN matvec time as the step builds it, and the per-matvec jvp form
     # (which recomputes the primal forward in every matvec) beside it
@@ -1093,6 +1120,7 @@ def phase_moe_lm():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = run_steps(opt, batch, 1, "the MoE LM path")
+    PATH_CG["MoE LM"] = opt.history["num_cg_iters"]
     print(f"MoE LM steps: peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
     lm_matvec(opt, batch, gen, "MoE LM")
@@ -1524,7 +1552,7 @@ def phase_module_path(acc_matvec_ms):
           f"(functional {f_ms:.2f} ms; phase 8's accumulated matvec over "
           f"2 x 64 {acc_matvec_ms:.2f} ms)")
     del built, m_mvp, f_mvp, ref
-    return run_steps(opt, nchw, 2, "phase 13's nn.Module steps")
+    return run_steps(opt, nchw, 1, "phase 13's nn.Module step")
 
 
 def phase_sizing(store_peaks):
@@ -1602,6 +1630,20 @@ def digest(t):
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
 
 
+_RESNET_REF = []
+
+
+def resnet_reference(opt, batch):
+    """``hf_step`` of phase 6's ResNet-18 from its seed-0 start with
+    ``cudnn.deterministic`` on, the reference of 14 a and 15 a; taken once
+    and kept for the other."""
+    if not _RESNET_REF:
+        _RESNET_REF.append(optimizer.hf_step(
+            opt.params, opt.state, batch, fns=opt.fns, config=opt.config,
+            ravel=opt.ravel))
+    return _RESNET_REF[0]
+
+
 def phase_dp_nccl():
     """14 a): NCCL on a 1-rank group; one DP step against ``hf_step``, bit
     for bit; the NCCL all_reduce time.  Returns the DP step's launches."""
@@ -1612,8 +1654,7 @@ def phase_dp_nccl():
     mesh = pmesh.make_mesh()
     opt, batch, _ = resnet_main_path()
     ravel = opt.ravel
-    ref = optimizer.hf_step(opt.params, opt.state, batch, fns=opt.fns,
-                            config=opt.config, ravel=ravel)
+    ref = resnet_reference(opt, batch)
     step = dp.make_dp_hf_step(opt.fns, opt.config, ravel, mesh)
     ops.fused_cg_update.launches = 0
     torch.cuda.synchronize()
@@ -1866,6 +1907,40 @@ def start_example(tmp, script, flags, nproc):
     return proc, files, time.perf_counter()
 
 
+_STARTED = []  # (output directory, handles) of every example started
+EARLY = {}  # examples started ahead of the phase that checks them
+
+
+def start_examples(runs):
+    """Start the examples ``[(script, flags, nproc)]`` at once, their output
+    in a directory of their own; :func:`stop_examples` stops them."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    handles = [start_example(tmp, script, flags, nproc)
+               for script, flags, nproc in runs]
+    _STARTED.append((tmp, handles))
+    return handles
+
+
+def stop_examples():
+    """Kill every started example still running and remove its output."""
+    for tmp, handles in _STARTED:
+        for proc, files, _ in handles:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _STARTED.clear()
+
+
+def model_axis_examples():
+    """Start 15 f's examples: beside the single-process phases 12 and 13
+    in the whole script, where the host has cores to spare."""
+    return start_examples([(script, flags, 2)
+                           for script, flags, _ in MODEL_AXIS_EXAMPLES])
+
+
 def wait_example(handle, timeout=400):
     """``(returncode, stdout, stderr, seconds from its start to now)`` of a
     started example (an upper bound on its run time, since it is read once
@@ -1903,7 +1978,7 @@ def example_launches(label, out, nproc):
 
 
 def check_dp_example(handle):
-    """14 d): the --dp example, started beside 14 b-c; returns both ranks'
+    """14 d): the --dp example, started before 14 a; returns both ranks'
     launches."""
     returncode, out, err, wall = wait_example(handle)
     if returncode != 0:
@@ -1920,7 +1995,7 @@ def check_dp_example(handle):
         print(f"    | {line}")
     print(f"14 d) run_allcnnc_cifar100.py --dp --backend gloo under "
           f"torch.distributed.run --nproc-per-node 2 on the card (started "
-          f"with 14 b): exit 0, read {wall:.1f} s after its start; losses "
+          f"before 14 a): exit 0, read {wall:.1f} s after its start; losses "
           f"{losses}; launches {launches} = both ranks' CG iterations")
     return launches
 
@@ -1962,8 +2037,7 @@ def phase_shard_nccl():
     mesh = pmesh.make_mesh(axis_names=("data", "model"), shape=(1, 1))
     opt, batch, _ = resnet_main_path()
     ravel = opt.ravel
-    ref = optimizer.hf_step(opt.params, opt.state, batch, fns=opt.fns,
-                            config=opt.config, ravel=ravel)
+    ref = resnet_reference(opt, batch)
     step = sharded.make_sharded_hf_step(opt.fns, opt.config, ravel, mesh)
     ops.fused_cg_update.launches = 0
     torch.cuda.synchronize()
@@ -2102,11 +2176,13 @@ def shard_resnet(mesh, rank, rec):
         rec["b_est"] = [mem[0]["total"], mem[1]["per_device"]]
 
 
-def decoder_problem():
+def decoder_problem(n_layers=LM["n_layers"]):
     """Phase 10's full-width decoder LM from the seed-0 start, its blocks in
-    sequence: ``(params, batch, fns, config, ravel)``."""
+    sequence, of ``n_layers`` blocks: ``(params, batch, fns, config,
+    ravel)``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = models.init_decoder_lm(gen, max_len=128, **LM)
+    params = models.init_decoder_lm(gen, max_len=128,
+                                    **dict(LM, n_layers=n_layers))
     tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
     fns = pkg.HFModelFns(
         model_fn=functools.partial(models.decoder_lm_apply,
@@ -2169,16 +2245,19 @@ def shard_decoder(mesh, rank, rec):
     axis = pmesh.model_axis(mesh)
     v = torch.randn(ravel.dim, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(6))
-    local = sharded._place_batch(mesh, batch, P(None, "model"), None)
     shard = sharded.ModelShard(axis, ravel.dim)
     specs = megatron_decoder_specs(LM["n_layers"])
-    with collectives.axes(sequence=axis), precision_ctx(config):
-        loss, grad, mvp = optimizer._build_matvec_and_grad(
-            fns, config, ravel, params, local,
-            sharded._AxesReduce(None, axis, "sum"))
-        mv = mvp(v)
-        solves = {"cp_cg": sharded_cg(shard, mvp, grad, config.damping)}
-    cp = [loss, grad, mv]
+    # CP beside the Megatron specs (15 g): the plan computes the blocks
+    # gathered, so these are the CP forward's values
+    t_g = time.perf_counter()
+    cp, mvp, local, axes = plan_values(fns, ravel, mesh, params, batch, v,
+                                       param_specs=specs,
+                                       batch_specs=P(None, "model"))
+    rec["g_time"] += time.perf_counter() - t_g
+    rec["g_mega_cp_roles"] = roles(axes)
+    rec["g_mega_cp_grad"] = digest(cp[1])
+    with collectives.axes(**axes), precision_ctx(config):
+        solves = {"cp_cg": sharded_cg(shard, mvp, cp[1], config.damping)}
     del mvp
     whole = sharded.unshard_params(spec_blocks(params, specs, mesh), specs,
                                    mesh, ravel)
@@ -2195,20 +2274,30 @@ def shard_decoder(mesh, rank, rec):
               hessian_matvec(fns, whole, tokens, ravel, v, axis)]
     _, rec["plain_peak"] = values_and_peak(fns, config, ravel, params, batch,
                                            v)
-    cp_step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+    t_g = time.perf_counter()
+    ema = joined_decoder(fns, config, ravel, mesh, params, batch, local, axes,
+                         rec)
+    rec["g_time"] += time.perf_counter() - t_g
+    # the steps on the first STEP_LAYERS blocks (the values above: all)
+    layers = STEP_LAYERS["decoder LM"]
+    s_params, s_batch, _, _, s_ravel = decoder_problem(layers)
+    s_state = pkg.init_state(s_ravel, config)
+    s_specs = megatron_decoder_specs(layers)
+    cp_step = sharded.make_sharded_hf_step(fns, config, s_ravel, mesh,
                                            batch_specs=P(None, "model"))
     ops.fused_cg_update.launches = 0
-    _, _, rec["cp_steps"], cp_flats = timed_steps(cp_step, params, state,
-                                                  batch, 1, ravel)
+    _, _, rec["cp_steps"], cp_flats = timed_steps(
+        cp_step, s_params, s_state, s_batch, 1, s_ravel)
     rec["cp_launches"] = ops.fused_cg_update.launches
-    tp_step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
-                                           param_specs=specs)
+    tp_step = sharded.make_sharded_hf_step(fns, config, s_ravel, mesh,
+                                           param_specs=s_specs)
     ops.fused_cg_update.launches = 0
     tp_params, _, rec["tp_steps"], tp_flats = timed_steps(
-        tp_step, params, state, batch, 1, ravel,
-        whole=lambda p: whole_params(p, specs, mesh, ravel))
+        tp_step, s_params, s_state, s_batch, 1, s_ravel,
+        whole=lambda p: whole_params(p, s_specs, mesh, s_ravel))
     rec["tp_launches"] = ops.fused_cg_update.launches
     rec["tp_block"] = list(tp_params["blocks"][0]["qkv"]["w"].shape)
+    rec["c_step_n"] = s_ravel.dim
     del cp_step, tp_step, tp_params, whole
     dist.barrier()
     if rank == 0:
@@ -2226,26 +2315,26 @@ def shard_decoder(mesh, rank, rec):
         rec["tp_values_rel"] = [rel(a, b) for a, b in zip(tp, ref)]
         for key, (x, m_hist) in solves.items():
             rec[key] = [rel(x, one_cg.x), rel(m_hist, one_cg.m_hist)]
-        del r_grad, r_mvp, r_mv, r_hv, ref, one_cg
+        del r_grad, r_mvp, r_mv, r_hv, one_cg
+        t_g = time.perf_counter()
+        joined_decoder_reference(fns, config, ravel, params, batch, ema, rec)
+        rec["g_time"] += time.perf_counter() - t_g
+        del ref, ema
         one = functools.partial(optimizer.hf_step, fns=fns, config=config,
-                                ravel=ravel)
-        _, _, rec["c_ref_steps"], ref = timed_steps(one, params, state,
-                                                    batch, 1, ravel)
+                                ravel=s_ravel)
+        _, _, rec["c_ref_steps"], ref = timed_steps(one, s_params, s_state,
+                                                    s_batch, 1, s_ravel)
         rec["cp_rel"] = [rel(a, b) for a, b in zip(cp_flats, ref)]
         rec["tp_rel"] = [rel(tp_flats[0], ref[0])]
 
 
-def shard_moe(mesh, rank, rec):
-    """15 d) on one rank: the full-width MoE LM under ``moe_param_specs``:
-    its loss and one GGN matvec through the expert-parallel forward, and 1
-    step with its peak; rank 0 then computes one process's loss and
-    matvec."""
-    import torch.distributed as dist
-
+def moe_problem(n_layers=LM["n_layers"]):
+    """Phase 11's full-width MoE LM from the seed-0 start, of ``n_layers``
+    blocks: ``(params, batch, fns, config, ravel)``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = models.init_moe_decoder_lm(gen, n_experts=8, max_len=128, **LM)
+    params = models.init_moe_decoder_lm(gen, n_experts=8, max_len=128,
+                                        **dict(LM, n_layers=n_layers))
     tokens = affine_tokens(gen, 32, 128, LM["vocab"], "cuda")
-    batch = (tokens, tokens)
     fns = pkg.HFModelFns(
         model_fn=functools.partial(
             models.moe_decoder_lm_apply, n_heads=LM["n_heads"],
@@ -2253,39 +2342,192 @@ def shard_moe(mesh, rank, rec):
         loss_outer=models.next_token_loss)
     config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
     ravel = pkg.TrainableRavel(params, pad_to_multiple=1024)
-    axis = pmesh.model_axis(mesh)
+    return params, (tokens, tokens), fns, config, ravel
+
+
+def shard_moe(mesh, rank, rec):
+    """15 d) on one rank: the full-width MoE LM's loss, gradient and one
+    GGN matvec through the expert-parallel forward, under
+    ``moe_param_specs`` with Megatron specs on the attention, which the
+    plan computes gathered (15 g); 15 g's same values under CP + EP; 1
+    EP step at :data:`STEP_LAYERS` blocks with its peak.  Rank 0 then
+    computes one process's loss, gradient and matvec, and the choices
+    that capacity drops."""
+    import torch.distributed as dist
+
+    params, batch, fns, config, ravel = moe_problem()
     v = torch.randn(ravel.dim, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(5))
-    with collectives.axes(expert=axis), precision_ctx(config):
-        loss, _, mvp = optimizer._build_matvec_and_grad(
-            fns, config, ravel, params, batch,
-            sharded._AxesReduce(None, axis, "mean"))
-        mv = mvp(v)
-    rec["d_loss"] = float(loss)
-    del mvp
-    specs = models.moe_param_specs(LM["n_layers"])
-    step = sharded.make_sharded_hf_step(fns, config, ravel, mesh,
+    t_g = time.perf_counter()
+    joined = joined_moe(fns, ravel, mesh, params, batch, v, rec)
+    rec["g_time"] += time.perf_counter() - t_g
+    layers = STEP_LAYERS["MoE LM"]
+    s_params, s_batch, _, _, s_ravel = moe_problem(layers)
+    specs = models.moe_param_specs(layers)
+    step = sharded.make_sharded_hf_step(fns, config, s_ravel, mesh,
                                         param_specs=specs)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.fused_cg_update.launches = 0
     p, _, rec["d_steps"], _ = timed_steps(
-        step, params, pkg.init_state(ravel, config), batch, 1, ravel,
-        whole=lambda p: whole_params(p, specs, mesh, ravel))
+        step, s_params, pkg.init_state(s_ravel, config), s_batch, 1, s_ravel,
+        whole=lambda p: whole_params(p, specs, mesh, s_ravel))
     rec["d_launches"] = ops.fused_cg_update.launches
     rec["d_peak"] = torch.cuda.max_memory_allocated()
     rec["d_block"] = list(p["blocks"][0]["w1"].shape)
-    del step, p
+    rec["d_step_n"] = s_ravel.dim
+    del step, p, s_params
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
     if rank == 0:
+        t_g = time.perf_counter()
+        rec["g_dropped"] = dropped_choices(fns, params, batch[0])
         with precision_ctx(config):
-            r_loss, _, r_mvp = optimizer._build_matvec_and_grad(
+            r_loss, r_grad, r_mvp = optimizer._build_matvec_and_grad(
                 fns, config, ravel, params, batch)
-            rec["d_rel"] = [abs(float(loss) / float(r_loss) - 1),
-                            rel(mv, r_mvp(v))]
+            ref = [r_loss, r_grad, r_mvp(v)]
+        loss, _, mv = joined["mega_ep"]
+        rec["d_rel"] = [abs(float(loss) / float(r_loss) - 1),
+                        rel(mv, ref[2])]
+        for key, values in joined.items():
+            rec[f"g_{key}_rel"] = [rel(a, b) for a, b in zip(values, ref)]
+        rec["g_time"] += time.perf_counter() - t_g
+
+
+def plan_values(fns, ravel, mesh, params, batch, v, param_specs=None,
+                batch_specs=None):
+    """Loss, gradient and one GGN matvec under the axes and the reduction
+    that the sharded step's plan (``sharded._Plan``) picks for these
+    specs, the specced weights entering as the blocks a step keeps:
+    ``([loss, grad, mvp(v)], mvp, local batch, axes)``."""
+    config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
+    plan = sharded._Plan(config, ravel, mesh, "data", "model", param_specs,
+                         batch_specs, "mean", stacked=False)
+    whole = plan.whole_params(spec_blocks(params, param_specs, mesh))
+    local, axes, reduce = plan.place(batch)
+    with collectives.axes(**axes), precision_ctx(plan.config):
+        loss, grad, mvp = optimizer._build_matvec_and_grad(
+            fns, plan.config, ravel, whole, local, reduce)
+        return [loss, grad, mvp(v)], mvp, local, axes
+
+
+def dropped_choices(fns, params, tokens):
+    """The top-2 choices that capacity drops in one process's forward of
+    the MoE LM, over its layers."""
+    counts = []
+    dispatch = models.moe._topk_dispatch
+
+    def counted(probs, capacity, top_k=2):
+        out = dispatch(probs, capacity, top_k)
+        counts.append(top_k * probs[..., 0].numel() - int(out[0].sum()))
+        return out
+
+    models.moe._topk_dispatch = counted
+    try:
+        with torch.no_grad():
+            fns.model_fn(params, tokens)
+    finally:
+        models.moe._topk_dispatch = dispatch
+    return sum(counts)
+
+
+def joined_moe(fns, ravel, mesh, params, batch, v, rec):
+    """15 g on one rank: the full-width MoE LM's loss, gradient and GGN
+    matvec under CP + EP and under Megatron attention + EP, through the
+    step's plan; returns them by combination."""
+    P = pmesh.PartitionSpec
+    specs = models.moe_param_specs(LM["n_layers"])
+    mega = models.moe_param_specs(LM["n_layers"])
+    for blk in mega["blocks"]:
+        blk.update(qkv={"w": P(None, "model"), "b": P("model")},
+                   proj={"w": P("model", None), "b": P()})
+    out = {}
+    for key, kw in (("cp_ep", dict(param_specs=specs,
+                                   batch_specs=P(None, "model"))),
+                    ("mega_ep", dict(param_specs=mega))):
+        values, mvp, _, axes = plan_values(fns, ravel, mesh, params, batch,
+                                           v, **kw)
+        del mvp
+        rec[f"g_{key}_roles"] = roles(axes)
+        rec[f"g_{key}_grad"] = digest(values[1])
+        out[key] = values
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def roles(axes):
+    """The roles of more than one rank that a forward ran under."""
+    return [k for k, a in axes.items() if a is not None and a.size > 1]
+
+
+def joined_decoder(fns, config, ravel, mesh, params, batch, local, axes,
+                   rec):
+    """15 g on one rank: the decoder LM's forward FLOPs under the axes of
+    the Megatron specs + CP (``axes``, the rank's positions ``local``), and
+    under CP the first EMA empirical-Fisher diagonal of the whole ``batch``
+    (fault F3) with its ms and peak, gathered whole."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), collectives.axes(**axes), \
+            FlopCounterMode(display=False) as counter:
+        fns.model_fn(params, local[0])
+    rec["g_flops"] = counter.get_total_flops()
+    plan = sharded._Plan(config, ravel, mesh, "data", "model", None,
+                         pmesh.PartitionSpec(None, "model"), "mean",
+                         stacked=False)
+    plan.whole_params(params)
+    local, axes, reduce = plan.place(batch)
+
+    def first_ema():
+        with collectives.axes(**axes), precision_ctx(config):
+            d = optimizer._diag(fns, params, local[0], local[1],
+                                config.precond_reduction, ravel, reduce)
+        return pkg.EMADiag(0.9).update(plan.shard(d))
+
+    ema, rec["g_diag_ms"], _, rec["g_diag_peak"] = with_peak(first_ema)
+    rec["g_diag_block"] = ema.numel()
+    rec["g_chunk_rows"] = max(1, sharded._ROW_CHUNK_BYTES // (
+        ravel.dim * ema.element_size()))
+    return plan.shard.gather(ema)
+
+
+def joined_decoder_reference(fns, config, ravel, params, batch, ema, rec):
+    """15 g on rank 0: one process's ``diag_EF`` on the whole sequence
+    against :func:`joined_decoder`'s, with its ms and peak."""
+    def one_diag():
+        with precision_ctx(config):
+            return pkg.diag_EF(fns.model_fn, fns.loss_outer, params,
+                               batch[0], batch[1], config.precond_reduction,
+                               ravel)
+
+    r_diag, rec["g_one_diag_ms"], _, rec["g_one_diag_peak"] = \
+        with_peak(one_diag)
+    rec["g_diag_rel"] = rel(ema, r_diag)
+
+
+def shard_joined(mesh, rank, rec):
+    """15 g) on one rank: 1 step of the full-width MoE LM under CP + EP
+    (``moe_param_specs`` and ``batch_specs=P(None, "model")``) with its
+    peak and launches.  15 g's values come from 15 c and 15 d, which
+    share one process's references with it."""
+    params, batch, fns, config, ravel = moe_problem()
+    specs = models.moe_param_specs(LM["n_layers"])
+    step = sharded.make_sharded_hf_step(
+        fns, config, ravel, mesh, param_specs=specs,
+        batch_specs=pmesh.PartitionSpec(None, "model"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_cg_update.launches = 0
+    p, _, rec["g_steps"], _ = timed_steps(
+        step, params, pkg.init_state(ravel, config), batch, 1, ravel,
+        whole=lambda p: whole_params(p, specs, mesh, ravel))
+    rec["g_launches"] = ops.fused_cg_update.launches
+    rec["g_peak"] = torch.cuda.max_memory_allocated()
+    rec["g_block"] = list(p["blocks"][0]["w1"].shape)
 
 
 def f2_values(fns, config, params, batch, local, mesh, v, dtype):
@@ -2370,9 +2612,10 @@ def shard_rank(rank, world, port, out_path):
                                  backend="gloo", device="cuda:0")
     mesh = pmesh.make_mesh(axis_names=("data", "model"), shape=(1, world))
     data_mesh = pmesh.make_mesh()
-    rec = {"rank": rank}
+    rec = {"rank": rank, "g_time": 0.0}
     for part, fn, on in (("b", shard_resnet, mesh), ("e", shard_f2, data_mesh),
-                         ("c", shard_decoder, mesh), ("d", shard_moe, mesh)):
+                         ("c", shard_decoder, mesh), ("d", shard_moe, mesh),
+                         ("g", shard_joined, mesh)):
         t0 = time.perf_counter()
         fn(on, rank, rec)
         gc.collect()
@@ -2478,6 +2721,9 @@ def phase_shard_resnet(r0, r1):
 
 def phase_shard_decoder(r0, r1):
     wall = r0["wall_c"]
+    if r0["c_step_n"] != CUT_N["decoder LM"]:
+        raise AssertionError(f"15 c): the steps' flat dimension "
+                             f"{r0['c_step_n']} is not phase 3's")
     for key in ("cp_steps", "tp_steps"):
         same_on_ranks("15 c)", r0, r1, key)
         check_losses(f"15 c) {key}", r0[key])
@@ -2520,7 +2766,9 @@ def phase_shard_decoder(r0, r1):
     print(f"15 c) the same two ranks ({wall:.1f} s), the "
           f"full-width decoder LM ({DENSE_LM_N:,} parameters, b32 x T128): "
           f"context parallel (batch_specs=P(None, 'model'), 64 + 64 "
-          f"positions): loss, gradient, GGN matvec vs one process "
+          f"positions; beside the Megatron specs, whose blocks the plan "
+          f"computes gathered: 15 g): loss, gradient, GGN matvec vs one "
+          f"process "
           f"{r0['cp_values_rel'][0]:.2e}, {r0['cp_values_rel'][1]:.2e}, "
           f"{r0['cp_values_rel'][2]:.2e} (relative, norm-wise, <= 1e-5); "
           f"Megatron param_specs (qkv w block {r0['tp_block']} per rank; "
@@ -2544,7 +2792,10 @@ def phase_shard_decoder(r0, r1):
           f"system on the ranks' blocks vs one process's: iterate "
           f"{r0['cp_cg'][0]:.2e}, m-history {r0['cp_cg'][1]:.2e} under CP, "
           f"{r0['tp_cg'][0]:.2e}, {r0['tp_cg'][1]:.2e} under Megatron "
-          f"(norm-wise, <= 1e-5); 1 CP step: CG iterations "
+          f"(norm-wise, <= 1e-5); the steps on the first "
+          f"{STEP_LAYERS['decoder LM']} of the {LM['n_layers']} blocks "
+          f"({r0['c_step_n']:,} parameters, K1 on {r0['c_step_n'] // 2:,} "
+          f"per rank): 1 CP step: CG iterations "
           f"{[s['iters'] for s in r0['cp_steps']]} (one process's first "
           f"{ref[0]['iters']}), parameters from one process's hf_step "
           f"{r0['cp_rel'][0]:.2e} ({bounds[0]}), losses "
@@ -2562,6 +2813,9 @@ def phase_shard_decoder(r0, r1):
 
 def phase_shard_moe(r0, r1):
     wall = r0["wall_d"]
+    if r0["d_step_n"] != CUT_N["MoE LM"]:
+        raise AssertionError(f"15 d): the step's flat dimension "
+                             f"{r0['d_step_n']} is not phase 3's")
     same_on_ranks("15 d)", r0, r1, "d_steps")
     check_losses("15 d)", r0["d_steps"])
     if not max(r0["d_rel"]) <= 1e-5:
@@ -2572,14 +2826,101 @@ def phase_shard_moe(r0, r1):
     print(f"15 d) the same two ranks ({wall:.1f} s), the "
           f"full-width MoE LM ({MOE_N:,} parameters) under moe_param_specs "
           f"(w1 block {r0['d_block']}: 4 of 8 experts per rank): loss and "
-          f"one GGN matvec through the expert-parallel forward vs one "
+          f"one GGN matvec through the expert-parallel forward (Megatron "
+          f"specs on the attention, computed gathered: 15 g) vs one "
           f"process's {r0['d_rel'][0]:.2e}, {r0['d_rel'][1]:.2e} (relative,"
-          f" norm-wise, <= 1e-5); 1 step: loss {s['init']:.6f} -> "
+          f" norm-wise, <= 1e-5); 1 step on the first "
+          f"{STEP_LAYERS['MoE LM']} of the {LM['n_layers']} blocks "
+          f"({r0['d_step_n']:,} parameters, K1 on {r0['d_step_n'] // 2:,} "
+          f"per rank): loss {s['init']:.6f} -> "
           f"{s['final']:.6f}, {s['iters']} CG iterations on both ranks, "
           f"{s['ms']:.1f} ms, replicas bitwise equal; peak memory per rank "
-          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB (one "
-          f"process's: phase 11); launches {launches} = the ranks' CG "
+          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB; "
+          f"launches {launches} = the ranks' CG "
           f"iterations")
+    return launches
+
+
+def phase_shard_joined(r0, r1):
+    step_wall, wall = r0["wall_g"], r0["wall_g"] + r0["g_time"]
+    same_on_ranks("15 g)", r0, r1, "g_steps")
+    check_losses("15 g)", r0["g_steps"])
+    launches = sum(launches_of("15 g)", r, "g_launches", "g_steps")
+                   for r in (r0, r1))
+    rels = {"cp_ep": r0["g_cp_ep_rel"], "mega_ep": r0["g_mega_ep_rel"],
+            "mega_cp": r0["cp_values_rel"][:3]}
+    if not max(max(v) for v in rels.values()) <= 1e-5:
+        raise AssertionError(f"15 g): loss, gradient, GGN matvec vs one "
+                             f"process's: {rels}")
+    for key in rels:
+        if r0[f"g_{key}_grad"] != r1[f"g_{key}_grad"]:
+            raise AssertionError(f"15 g) {key}: the ranks' gradients differ")
+    # 15 c's CP values and 15 d's EP values come from the mega_cp and
+    # mega_ep plans, which compute the blocks gathered: when a joint
+    # Megatron + CP or + EP partition changes these roles, 15 c and 15 d
+    # must compare the CP-alone and EP-alone plans' values again
+    roles = {"cp_ep": ["sequence", "expert"], "mega_ep": ["expert"],
+             "mega_cp": ["sequence"]}
+    for key, want in roles.items():
+        if r0[f"g_{key}_roles"] != want:
+            raise AssertionError(f"15 g) {key}: the forward ran under the "
+                                 f"axes {r0[f'g_{key}_roles']}, not {want}")
+    if not r0["g_dropped"] > 0:
+        raise AssertionError("15 g): capacity dropped no choice, so the "
+                             "gathered routing was not exercised")
+    # CP alone splits the work: every matmul sees half the positions
+    if not (r0["g_flops"] == r1["g_flops"]
+            and 2 * r0["g_flops"] == r0["one_flops"]):
+        raise AssertionError(f"15 g): forward FLOPs per rank under the "
+                             f"Megatron specs + CP {r0['g_flops']}, "
+                             f"{r1['g_flops']} against one process's "
+                             f"{r0['one_flops']}")
+    if not r0["g_diag_rel"] <= 1e-5:
+        raise AssertionError(f"15 g): the first EMA diagonal under CP vs "
+                             f"one process's diag_EF: {r0['g_diag_rel']}")
+    s = r0["g_steps"][0]
+    phase11 = PATH_CG.get("MoE LM", "not run")
+    cp_ep, mega_ep, mega_cp = (rels[k] for k in ("cp_ep", "mega_ep",
+                                                 "mega_cp"))
+    print(f"15 g) the same two ranks ({wall:.1f} s: the step "
+          f"{step_wall:.1f} s, the values and references inside 15 c and d "
+          f"{r0['g_time']:.1f} s on rank 0), where the model "
+          f"axis's roles meet: the full-width MoE LM ({MOE_N:,} parameters)"
+          f" under CP + EP (moe_param_specs and batch_specs=P(None, "
+          f"'model'); w1 block {r0['g_block']}; attention on 64 of 128 "
+          f"positions, the MoE on all 4,096 tokens on 4 of 8 experts): "
+          f"loss, gradient, GGN matvec vs one process {cp_ep[0]:.2e}, "
+          f"{cp_ep[1]:.2e}, {cp_ep[2]:.2e} (relative, norm-wise, <= 1e-5);"
+          f" capacity drops {r0['g_dropped']} of "
+          f"{2 * 32 * 128 * LM['n_layers']:,} top-2 choices in one "
+          f"process's forward (> 0); 1 step: loss {s['init']:.6f} -> "
+          f"{s['final']:.6f}, {s['iters']} CG iterations on both ranks "
+          f"(phase 11's one process: {phase11}), {s['ms']:.1f} ms, replicas "
+          f"bitwise equal; peak memory per rank {gib(r0['g_peak']):.2f} / "
+          f"{gib(r1['g_peak']):.2f} GiB (EP alone, 15 d: 30.81 GiB in PR "
+          f"7; one process, phase 11: 39.22 GiB); launches {launches} = "
+          f"the ranks' CG iterations")
+    print(f"15 g) the MoE LM under Megatron attention + EP (the blocks "
+          f"computed gathered, the experts split): loss, gradient, GGN "
+          f"matvec vs one process {mega_ep[0]:.2e}, {mega_ep[1]:.2e}, "
+          f"{mega_ep[2]:.2e} (<= 1e-5); the decoder LM ({DENSE_LM_N:,} "
+          f"parameters) under its Megatron specs + CP (the blocks gathered,"
+          f" the sequence split): {mega_cp[0]:.2e}, {mega_cp[1]:.2e}, "
+          f"{mega_cp[2]:.2e} (<= 1e-5), forward FLOPs per rank "
+          f"{r0['g_flops']:,} against one process's {r0['one_flops']:,}"
+          f" (exactly half: the CP split alone); the ranks' gradients "
+          f"bitwise equal")
+    print(f"15 g) fault F3: the decoder LM b32's first EMA diagonal under "
+          f"CP (each sample's gradient summed over the model axis in "
+          f"chunks of {r0['g_chunk_rows']} rows, {r0['g_diag_block']:,} "
+          f"entries squared per rank) vs one process's diag_EF on the "
+          f"whole sequence {r0['g_diag_rel']:.2e} (<= 1e-5); "
+          f"{r0['g_diag_ms']:.1f} / {r1['g_diag_ms']:.1f} ms (host clock, "
+          f"two ranks at once) against one process's "
+          f"{r0['g_one_diag_ms']:.1f} ms; peak requested bytes "
+          f"{gib(r0['g_diag_peak']):.3f} / {gib(r1['g_diag_peak']):.3f} GiB"
+          f" per rank against one process's "
+          f"{gib(r0['g_one_diag_peak']):.3f} GiB")
     return launches
 
 
@@ -2623,7 +2964,8 @@ MODEL_AXIS_EXAMPLES = (
 
 
 def check_model_axis_examples(handles):
-    """15 f): the four model-axis examples, started beside 15 b-e; returns
+    """15 f): the four model-axis examples, started before phase 12 (or 15
+    a, alone); returns
     their launches."""
     launches = 0
     for (script, flags, done), handle in zip(MODEL_AXIS_EXAMPLES, handles):
@@ -2638,7 +2980,7 @@ def check_model_axis_examples(handles):
         launches += n
         print(f"15 f) {script} {' '.join(flags)} --backend gloo under "
               f"torch.distributed.run --nproc-per-node 2 (the four started "
-              f"with 15 b-e): exit 0, read {wall:.1f} s after its start, "
+              f"before phase 12): exit 0, read {wall:.1f} s after its start, "
               f"{len(steps)} steps printed once (rank 0), launches {n} = "
               f"both ranks' CG iterations")
     return launches
@@ -2651,23 +2993,16 @@ def phase_model_axis():
     launches = phase_shard_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    # f) beside b-e: all wait on the host far more than on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        examples = [start_example(tmp, script, flags, 2)
-                    for script, flags, _ in MODEL_AXIS_EXAMPLES]
-        try:
-            (r0, r1), wall = two_ranks()
-        except BaseException:
-            for handle in examples:
-                handle[0].kill()
-                wait_example(handle)
-            raise
-        print(f"15 b-e) two gloo ranks sharing the card: {wall:.1f} s with "
-              f"start-up")
-        launches += phase_shard_resnet(r0, r1)
-        launches += phase_shard_decoder(r0, r1)
-        launches += phase_shard_moe(r0, r1)
-        launches += check_model_axis_examples(examples)
+    # f) started before (all wait on the host far more than on the card)
+    examples = EARLY.pop("15 f", None) or model_axis_examples()
+    (r0, r1), wall = two_ranks()
+    print(f"15 b-e, g) two gloo ranks sharing the card: {wall:.1f} s with "
+          f"start-up")
+    launches += phase_shard_resnet(r0, r1)
+    launches += phase_shard_decoder(r0, r1)
+    launches += phase_shard_moe(r0, r1)
+    launches += phase_shard_joined(r0, r1)
+    launches += check_model_axis_examples(examples)
     torch.backends.cudnn.deterministic = False
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2677,19 +3012,13 @@ def phase_data_parallel():
     """Phase 14 (module docstring); returns the kernel launches."""
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
+    # d) beside a-c: they wait on the host far more than on the card
+    (example,) = start_examples([("run_allcnnc_cifar100.py", ["--dp"], 2)])
     launches = phase_dp_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    # d) beside b-c: both wait on the host far more than on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        example = start_example(tmp, "run_allcnnc_cifar100.py", ["--dp"], 2)
-        try:
-            launches += phase_dp_two_ranks()
-        except BaseException:
-            example[0].kill()
-            wait_example(example)
-            raise
-        launches += check_dp_example(example)
+    launches += phase_dp_two_ranks()
+    launches += check_dp_example(example)
     torch.backends.cudnn.deterministic = False
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2934,7 +3263,7 @@ PIPE_EXAMPLE_DONE = "next-token loss halved through the pipelined model; done."
 
 
 def check_pipe_example(handle):
-    """16 c): the pipeline example, started beside 16 b; returns its four
+    """16 c): the pipeline example, started before 16 a; returns its four
     ranks' launches."""
     returncode, out, err, wall = wait_example(handle)
     if returncode != 0 or out.count(PIPE_EXAMPLE_DONE) != 1:
@@ -2948,7 +3277,7 @@ def check_pipe_example(handle):
         print(f"    | {line}")
     print(f"16 c) run_pipeline_parallel.py --backend gloo under "
           f"torch.distributed.run --nproc-per-node 4 (4 stages on the card, "
-          f"started with 16 b): exit 0, read {wall:.1f} s after its start, "
+          f"started before 16 a): exit 0, read {wall:.1f} s after its start, "
           f"the loss halved, each step printed once (rank 0); launches "
           f"{launches} = the four ranks' CG iterations")
     return launches
@@ -2958,19 +3287,13 @@ def phase_pipeline():
     """Phase 16 (module docstring); returns the kernel launches."""
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
+    # c) beside a-b: they wait on the host far more than on the card
+    (example,) = start_examples([("run_pipeline_parallel.py", [], 4)])
     launches = phase_pipe_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    # c) beside b): both wait on the host far more than on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        example = start_example(tmp, "run_pipeline_parallel.py", [], 4)
-        try:
-            launches += phase_pipe_two_ranks()
-        except BaseException:
-            example[0].kill()
-            wait_example(example)
-            raise
-        launches += check_pipe_example(example)
+    launches += phase_pipe_two_ranks()
+    launches += check_pipe_example(example)
     torch.backends.cudnn.deterministic = False
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3000,11 +3323,18 @@ def main():
     _build.build("fused_cg_update.cu")
     _build.load("fused_cg_update.cu")
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    if sys.argv[1:2] == ["--phase"]:
-        {"3": phase_kernel, "14": phase_data_parallel,
-         "15": phase_model_axis, "16": phase_pipeline}[sys.argv[2]]()
-        return
+    try:
+        if sys.argv[1:2] == ["--phase"]:
+            {"3": phase_kernel, "14": phase_data_parallel,
+             "15": phase_model_axis, "16": phase_pipeline}[sys.argv[2]]()
+        else:
+            run_all_phases(name)
+    finally:
+        stop_examples()
 
+
+def run_all_phases(name):
+    """Phases 3-16, then the ``kernels`` line and the ``ok`` line."""
     clock = [time.perf_counter()]
 
     def lap(phases):
@@ -3028,6 +3358,7 @@ def main():
     lap(10)
     launches += phase_moe_lm()
     lap(11)
+    EARLY["15 f"] = model_axis_examples()
     steps, store_peaks = phase_resnet_features()
     launches += steps
     lap(12)

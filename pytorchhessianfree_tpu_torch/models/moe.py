@@ -21,6 +21,27 @@ Expert parallelism (:func:`moe_param_specs` through
 stay replicated; each of the axis's ``M`` ranks runs the expert MLPs of
 its ``E / M`` experts on their slots only, and one ``all_reduce`` per
 layer sums the ranks' partial combines.
+
+Context parallelism (a split sequence axis, read from
+:func:`~..parallel.collectives.sequence_axis`): attention runs over the
+rank's ``T / M`` positions (:mod:`.transformer`), and the feed-forward is
+computed gathered.  It gathers every rank's positions
+(:func:`~..parallel.collectives.all_gather`) into ``[N, T, d]`` in global
+order, routes them as the whole program does (the same groups of
+consecutive flattened tokens, the same capacity, the same slot order and
+the same dropped choices), runs the experts on all of them (or, under an
+expert axis too, on this rank's experts, with the combine summed over
+the axis) and keeps the rank's positions
+(:func:`~..parallel.collectives.split`).  The gather's adjoint is a
+reduce-scatter and the split's puts the block back among zeros, so the
+ranks' loss shares sum to the whole gradient under every transform.  The
+Switch aux is the whole program's on every rank; ``return_aux=True``
+returns the rank's share of it, ``aux / M``, so that the shares sum to
+it as the loss's do.
+
+Rows split over a data axis are routed by each rank alone (its capacity,
+slot order and dropped choices), not as the whole program routes them:
+fault F5, documented in :mod:`..parallel.sharded`.
 """
 
 from __future__ import annotations
@@ -43,6 +64,7 @@ from .transformer import (
     _ln_init,
     _normal,
     _one_hot,
+    _positions,
 )
 
 
@@ -152,7 +174,11 @@ def _topk_dispatch(probs, capacity: int, top_k: int = 2):
 
 def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
              top_k: int = 2):
-    """Top-k MoE feed-forward over [N, T, d] activations -> (out, aux)."""
+    """Top-k MoE feed-forward over [N, T, d] activations -> (out, aux).
+    Under a sequence axis ``h`` holds the rank's positions: they are
+    routed among every rank's (module docstring)."""
+    seq = collectives.sequence_axis()
+    h = collectives.all_gather(h, seq, dim=1)
     N, T, d = h.shape
     E = blk["gate"].shape[-1]
     if top_k not in (1, 2):
@@ -197,7 +223,7 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
     out = torch.einsum("sgec,secd->sgd", combine, ye)
     if ep is not None:
         out = collectives.all_reduce_sum(out, ep)
-    return out.reshape(N, T, d), aux
+    return collectives.split(out.reshape(N, T, d), seq, dim=1), aux
 
 
 def _moe_block(
@@ -231,15 +257,11 @@ def moe_decoder_lm_apply(
     per-group capacity over S equal slices of the flattened tokens;
     ``top_k=1`` is Switch routing.  ``scan_layers``, ``remat``,
     ``attn_chunk`` and ``embed_onehot`` are as on
-    :func:`~.transformer.decoder_lm_apply`."""
+    :func:`~.transformer.decoder_lm_apply`.  Under context parallelism
+    ``tokens`` are this rank's positions and the aux is the rank's share
+    (module docstring)."""
     del scan_layers  # layout knob of the JAX package
-    if collectives.sequence_axis() is not None:
-        raise ValueError(
-            "The MoE LM routes over all of a group's tokens; context "
-            "parallelism (a split sequence axis) is not supported for it."
-        )
-    T = tokens.shape[1]
-    x = _embed(params, tokens, embed_onehot) + params["pos"][:T]
+    x = _embed(params, tokens, embed_onehot) + _positions(params, tokens)
     block = partial(
         _moe_block, n_heads=n_heads, capacity_factor=capacity_factor,
         attn_chunk=attn_chunk, router_groups=router_groups, top_k=top_k,
@@ -253,7 +275,9 @@ def moe_decoder_lm_apply(
     x = _layernorm(params["ln_f"], x)
     logits = x @ params["embed"].T
     if return_aux:
-        return logits, torch.mean(torch.stack(auxs))
+        aux = torch.mean(torch.stack(auxs))
+        seq = collectives.sequence_axis()
+        return logits, aux if seq is None else aux / seq.size
     return logits
 
 

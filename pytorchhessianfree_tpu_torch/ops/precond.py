@@ -48,6 +48,16 @@ def _num_samples(inputs) -> int:
     return tree_flatten(inputs)[0][0].shape[0]
 
 
+def _sample_grad_rows(model_fn, loss_outer, params, inputs, targets,
+                      ravel: TrainableRavel) -> torch.Tensor:
+    """Every sample's flat gradient, ``[N, dim]``, from one batched pass;
+    the tree out of ``vmap`` is flattened outside it."""
+    per_sample = vmap(
+        grad(_one_sample_loss(model_fn, loss_outer)), in_dims=(None, 0, 0)
+    )(params, inputs, targets)
+    return ravel.ravel_rows(per_sample)
+
+
 def diag_EF(
     model_fn: Callable[[Any, Any], Any],
     loss_outer: Callable[[Any, Any], torch.Tensor],
@@ -66,11 +76,8 @@ def diag_EF(
     squaring (the reference's ``diag_EF_autograd``, the variant documented
     for L2-regularized losses)."""
     _check_reduction(reduction)
-    per_sample = vmap(
-        grad(_one_sample_loss(model_fn, loss_outer)), in_dims=(None, 0, 0)
-    )(params, inputs, targets)
-    grads = ravel.ravel_rows(per_sample)  # [N, dim]
-    del per_sample
+    grads = _sample_grad_rows(model_fn, loss_outer, params, inputs, targets,
+                              ravel)
     reg = _reg_grad(loss_reg, params, ravel)
     if reg is not None:
         grads = grads + reg[None, :]

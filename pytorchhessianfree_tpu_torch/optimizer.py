@@ -637,15 +637,18 @@ def _diag(fns, params, inputs, targets, reduction, ravel, reduce=None,
     partial sums, and ``"mean"`` divides by the global row count.  Each
     per-sample gradient sees its sample alone, with no batch statistics
     across the ranks (:func:`~.parallel.collectives.local_batch`), as a
-    ``vmap`` over samples gives each a batch of one in the JAX package."""
+    ``vmap`` over samples gives each a batch of one in the JAX package.
+    ``reduce.sample_squares`` computes a rank's sum of squares: under a
+    model axis each sample's gradient is made whole first
+    (:meth:`~.parallel.sharded._AxesReduce.sample_squares`)."""
     if reduce is None:
         return diag(fns.model_fn, fns.loss_outer, params, inputs, targets,
                     reduction, ravel, loss_reg=fns.loss_reg)
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction {reduction} is not supported.")
     with collectives.local_batch():
-        d = reduce.sum(diag(fns.model_fn, fns.loss_outer, params, inputs,
-                            targets, "sum", ravel, loss_reg=fns.loss_reg))
+        d = reduce.sum(reduce.sample_squares(diag, fns, params, inputs,
+                                             targets, ravel))
     if reduction == "mean":
         d = d / (tree_flatten(inputs)[0][0].shape[0] * reduce.size)
     return d

@@ -112,6 +112,13 @@ class _Reduce:
         out = self.sum(t)
         return out / self.size if self.reduction == "mean" else out
 
+    def sample_squares(self, diag, fns, params, inputs, targets, ravel):
+        """This rank's rows' sum of squared per-sample gradients through
+        ``diag`` (``optimizer._diag``): a rank of the data axis holds each
+        of its samples' whole gradient."""
+        return diag(fns.model_fn, fns.loss_outer, params, inputs, targets,
+                    "sum", ravel, loss_reg=fns.loss_reg)
+
 
 def _broadcast_replicas(tree, mesh, axis_name: str = "data") -> None:
     """Overwrite every rank's tensors in ``tree`` with those of the axis's

@@ -49,25 +49,45 @@ port states what GSPMD chose freely:
   ``pos`` and the head (a vocab-parallel head is not ported); a sub-layer
   whose head count or ``d_ff`` the axis does not divide; stacked blocks
   (:func:`~..models.transformer.stack_blocks`, the pipeline's layout).
-  The step refuses the layout together with context or expert
-  parallelism over the same model axis.
-- **Two more partitioned forms.**  Under ``batch_specs`` that
-  split the sequence axis of the tokens over the model axis (context
-  parallelism), the decoders' attention gathers keys and values over it
-  and each rank's loss is its positions' share
-  (:mod:`~..models.transformer`).  Under ``param_specs`` whose
+- **Context and expert parallelism.**  Under ``batch_specs`` that split
+  the sequence axis of the tokens over the model axis (context
+  parallelism, CP), the decoders' attention gathers keys and values over
+  it and each rank's loss is its positions' share
+  (:mod:`~..models.transformer`); the MoE LM's feed-forward gathers the
+  positions and routes them as the whole program does
+  (:mod:`~..models.moe`).  Under ``param_specs`` whose
   :class:`~.mesh.ExpertSpec` leaves split the experts over the model axis
-  (:func:`~..models.moe.moe_param_specs`; expert parallelism), each rank
-  runs the MoE feed-forward on its own experts and one ``all_reduce`` per
-  layer sums the combine (:mod:`~..models.moe`); plain specs on the same
-  leaves gather them like any sharded leaf.  Both run their collectives inside the
-  transforms (:mod:`.collectives`); the loss, the gradient, every matvec
-  and every trial loss are then summed over the model axis (context) or
-  averaged over it (experts: each rank's loss is the whole loss), outside
-  the transforms.
+  (:func:`~..models.moe.moe_param_specs`; expert parallelism, EP), each
+  rank runs the MoE feed-forward on its own experts and one
+  ``all_reduce`` per layer sums the combine; plain specs on the same
+  leaves gather them like any sharded leaf.  Both run their collectives
+  inside the transforms (:mod:`.collectives`), as one joined program: the
+  loss, the gradient, every matvec and every trial loss are then summed
+  over the model axis whenever the sequence is split, and averaged over
+  it under EP alone (each rank's loss is then the whole loss), outside
+  the transforms.  The empirical-Fisher diagonal makes each sample's
+  gradient whole over the model axis in the same way, in chunks of rows,
+  before it squares the rank's block (``optimizer._diag``).
+- **Where roles meet on one model axis.**  CP + EP partitions both: the
+  attention runs over the rank's positions and the MoE feed-forward over
+  every position on the rank's experts.  Megatron blocks beside CP or EP
+  are computed gathered (no tensor axis), and the other role stays
+  partitioned: CP (+ EP) splits the sequence with whole blocks on every
+  rank, Megatron attention + EP splits the experts.  Megatron's
+  ``copy_to_axis`` / ``reduce_from_axis`` follow one replicated program
+  whose sub-layers all receive the same cotangent, which the joined
+  program's EP combine and CP loss shares do not give.  Megatron-specced
+  weights are still kept as blocks between steps.
 - **The data axis** reduces as in :mod:`.data_parallel` when a batch leaf
   is split over it, and the forward takes batch statistics over it
   (``models.resnet.batchnorm``), as GSPMD does.
+  **Not the whole program (fault F5):** with the rows split over the
+  data axis (the default ``P("data")``), the MoE LM routes each rank's
+  rows alone, where GSPMD routes all of a router group's rows, so its
+  capacity, slot order and dropped choices are the rank's, and the step
+  returns other values than the JAX package's without an error.  Until
+  this is repaired, replicate the MoE LM's rows (``batch_specs=P()``) or
+  split its sequence alone (``P(None, "model")``).
 
 Every branch on the host reads a reduced or replicated value, so the
 replicas along both axes stay bitwise equal.  Trajectories equal the
@@ -91,7 +111,7 @@ import torch.distributed as dist
 
 from .. import accumulate as acc
 from ..config import HFConfig, precision_ctx
-from ..ops.precond import EMADiag
+from ..ops.precond import EMADiag, _reg_grad, _sample_grad_rows
 from ..optimizer import (
     HFModelFns,
     _diag,
@@ -286,34 +306,63 @@ def _splits_experts(specs, model_axis: str) -> bool:
                and model_axis in _names(s[0]) for s in _spec_leaves(specs))
 
 
+# per-sample gradient rows reduced over the model axis at a time
+_ROW_CHUNK_BYTES = 256 * 2**20
+
+
 class _AxesReduce:
     """``reduce`` of the optimizer's steps over both axes: the model axis
     first (a sum of the ranks' shares, or the mean of their equal
-    values), then the data axis (:class:`~.data_parallel._Reduce`)."""
+    values), then the data axis (:class:`~.data_parallel._Reduce`).
+    :meth:`sum` and :attr:`size` are the data axis's; ``shard`` cuts a
+    whole vector to this rank's block (:meth:`sample_squares`)."""
 
-    def __init__(self, data: Optional[_Reduce], model, mode: str):
+    def __init__(self, data: Optional[_Reduce], model, mode: str,
+                 shard: ModelShard):
         self.data, self.model, self.mode = data, model, mode
+        self.shard = shard
+
+    def _model_rows(self, t: torch.Tensor) -> torch.Tensor:
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self.model.group)
+        return out / self.model.size if self.mode == "mean" else out
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         if self.model is not None:
-            out = t.clone(memory_format=torch.contiguous_format)
-            dist.all_reduce(out, group=self.model.group)
-            t = out / self.model.size if self.mode == "mean" else out
+            t = self._model_rows(t)
         return t if self.data is None else self.data(t)
 
     @property
     def size(self):
-        return self.data.size
+        return 1 if self.data is None else self.data.size
 
     def sum(self, t):
-        if self.model is not None:
-            raise ValueError(
-                "an empirical-Fisher diagonal needs each sample's whole "
-                "gradient; under context or expert parallelism a rank has "
-                "its share of it. Compute the diagonal without the model "
-                "axis's partitioned forward."
-            )
-        return self.data.sum(t)
+        return t if self.data is None else self.data.sum(t)
+
+    def sample_squares(self, diag, fns, params, inputs, targets, ravel):
+        """This rank's block of ``sum_i (g_i + reg)^2`` over its rows
+        (``optimizer._diag``), with ``g_i`` each sample's WHOLE gradient.
+        Under context or expert parallelism a rank's per-sample gradient
+        rows (``diag_EF``'s, whatever ``diag``) are its share of it, so
+        they are reduced over the model axis with the step's own mode in
+        chunks of at most :data:`_ROW_CHUNK_BYTES`; the regularizer's
+        gradient is then added once and the rank squares its block alone.
+        Without a model axis, the data axis's (``diag``'s) sum."""
+        if self.model is None:
+            return self.data.sample_squares(diag, fns, params, inputs,
+                                            targets, ravel)
+        rows = _sample_grad_rows(fns.model_fn, fns.loss_outer, params,
+                                 inputs, targets, ravel)
+        reg = _reg_grad(fns.loss_reg, params, ravel)
+        step = max(1, _ROW_CHUNK_BYTES
+                   // (rows.shape[1] * rows.element_size()))
+        out = 0
+        for i in range(0, rows.shape[0], step):
+            g = self._model_rows(rows[i:i + step])
+            if reg is not None:
+                g = g + reg
+            out = out + torch.sum(self.shard(g) ** 2, dim=0)
+        return out
 
 
 class _Plan:
@@ -399,32 +448,23 @@ class _Plan:
                 "axis."
             )
         context = bool(seq_dims)
-        if context and self.experts:
-            raise ValueError(
-                "Context and expert parallelism over one model axis are "
-                "not supported together.")
-        if self.megatron and (context or self.experts):
-            other = "Context" if context else "Expert"
-            raise ValueError(
-                f"{other} parallelism and Megatron-partitioned transformer "
-                f"blocks (tensor parallelism) over one model axis are not "
-                f"supported together.")
+        joined = context or self.experts  # the joined program's roles
         data_split = self.data_axis is not None and 0 in _split_dims(
             specs, self.data_axis, self.stacked)
         data = _Reduce(self.mesh, self.data_axis, self.reduction) \
             if data_split else None
-        model = self.model if (context or self.experts) \
-            and self.model.size > 1 else None
+        model = self.model if joined and self.model.size > 1 else None
         reduce = None
         if data is not None or model is not None:
-            reduce = _AxesReduce(data, model,
-                                 "sum" if context else "mean")
+            reduce = _AxesReduce(data, model, "sum" if context else "mean",
+                                 self.shard)
         axes = dict(
             batch=collectives.mesh_axis(self.mesh, self.data_axis)
             if data_split else None,
             sequence=self.model if context else None,
             expert=self.model if self.experts else None,
-            tensor=self.model if self.megatron else None,
+            # beside CP or EP the Megatron blocks are computed gathered
+            tensor=self.model if self.megatron and not joined else None,
         )
         local = _place_batch(self.mesh, batch, self.batch_specs,
                              self.default_s, self.stacked)
@@ -549,8 +589,9 @@ def make_sharded_hf_train_loop(
     step's leaves; the time axis is prepended unsplit.
 
     ``precond_ema_decay``: an EMA of each step's empirical-Fisher diagonal
-    (over the data axis, replicated, then cut to this rank's block)
-    preconditions every solve; the loop then takes and returns it,
+    (each sample's gradient whole over the model axis, its square summed
+    over the data axis, kept as this rank's block) preconditions every
+    solve; the loop then takes and returns it,
     ``loop(params, state, batches, ema_state=None) -> (params, state,
     stats, ema_state)``, an :class:`~..ops.precond.EMADiag` holding this
     rank's block."""

@@ -25,6 +25,7 @@ It imports no JAX.
 """
 
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -304,12 +305,27 @@ def spawn(suite, problem_path, out_dir, world=2):
                         [str(problem_path), str(out_dir), suite], world)
 
 
+def free_port():
+    """A free local port below Linux's default ephemeral range (32768 on):
+    the system hands ephemeral ports to other sockets (the gloo pairs of
+    other tests' ranks among them), so one that ``bind(0)`` picked can be
+    taken before rank 0 binds it, and the ranks then wait on a stranger."""
+    rng = random.SystemRandom()
+    for _ in range(200):
+        port = rng.randrange(20000, 32768)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free local port in [20000, 32768)")
+
+
 def spawn_script(script, args, world=2):
     """Start ``world`` ranks of ``script RANK WORLD PORT *args`` on a free
     local port, one PyTorch thread each; returns their processes."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     return [
         subprocess.Popen(
@@ -332,7 +348,11 @@ def collect(procs, out_dir, timeout=240):
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            raise
+            outs += [q.communicate()[0] for q in procs[len(outs):]]
+            raise RuntimeError(
+                f"a rank outlasted {timeout} s; their output:\n"
+                + "\n".join(f"-- rank {r}:\n{out[-2000:]}"
+                             for r, out in enumerate(outs)))
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
         assert f"rank {rank}/{len(procs)}" in out, out[-3000:]

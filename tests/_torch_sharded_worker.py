@@ -16,8 +16,8 @@ parameters, the CG iterations and the losses to ``OUT_DIR/rank{RANK}.npz``.
 through the JAX package's builders and through the port's one-process
 steps (``tests/_torch_sharded_parity.py``).  The suites of
 :data:`MEGATRON_SUITES` check what each rank computes under Megatron
-tensor parallelism against one process's values in the rank itself.  It
-imports no JAX.
+tensor parallelism, and on the card under CP + EP, against one process's
+values in the rank itself.  It imports no JAX.
 """
 
 import os
@@ -81,6 +81,15 @@ MEGATRON = {
     ],
 }
 TINY_LM = dict(vocab=12, d_model=16, d_ff=32, max_len=8)
+# the Megatron blocks of the decoder LM (embeddings split by feature and
+# gathered, the head tied) and Megatron attention beside the MoE LM's
+# expert specs
+MEGATRON_DEC = {"embed": P(None, "model"), "pos": P(None, "model"),
+                "ln_f": P(), "blocks": MEGATRON["blocks"]}
+MEGATRON_MOE = moe_param_specs(2)
+for _blk in MEGATRON_MOE["blocks"]:
+    _blk.update(qkv={"w": COL, "b": P("model")}, proj={"w": ROW, "b": P()})
+AUX_WEIGHT = 0.01  # examples_torch/run_moe_lm.py's
 
 # case -> model, builder, steps and the builder's keywords
 CASES = {
@@ -106,6 +115,35 @@ CASES = {
                     batch_specs=P(None, "model")),
     "wrap_tp": dict(model="enc", steps=2, builder="wrapper",
                     param_specs=MEGATRON),
+    # where the model axis's roles meet, and the empirical-Fisher diagonal
+    # under them (faults F3 and F4)
+    "loop_cp_ema": dict(model="dec1", steps=2, builder="loop",
+                        batch_specs=P(None, "model"), ema=0.9),
+    # XLA's SPMD partitioner aborts on the JAX package's MoE LM with a
+    # split sequence on a mesh whose data axis is 1 or absent ("Check
+    # failed: ShapeUtil::IsScalarWithElementType", jaxlib 0.9.0), so the
+    # JAX side of these runs on a (2, 2) mesh, which computes the same
+    # program; it aborts alike on the MoE LM's in-step diagonal unless the
+    # rows are replicated over a data axis of 2, as ep_diag's are
+    "moe_cp": dict(model="moe_aux", steps=2, batch_specs=P(None, "model"),
+                   jax_world=4),
+    "moe_cp_ep": dict(model="moe_aux", steps=2,
+                      batch_specs=P(None, "model"),
+                      param_specs=moe_param_specs(2), jax_world=4,
+                      same_jax="moe_cp"),
+    "ep_diag": dict(model="moe", steps=1, param_specs=moe_param_specs(2),
+                    batch_specs=P(), diag_ef=True, jax_world=4),
+    "mega_cp": dict(model="dec", steps=1, batch_specs=P(None, "model"),
+                    param_specs=MEGATRON_DEC),
+    # the rows replicated over the data axis: split over it, each rank
+    # would route its rows alone where GSPMD routes them all (fault F5)
+    "mega_ep": dict(model="moe", steps=1, param_specs=MEGATRON_MOE,
+                    batch_specs=P()),
+    # F5 itself, pinned by an expected failure: the rows split
+    "mega_ep_rows": dict(model="moe", steps=1, param_specs=MEGATRON_MOE,
+                         same_jax="mega_ep"),
+    "loop_tp_ema": dict(model="enc", steps=1, builder="loop",
+                        param_specs=MEGATRON, ema=0.9),
 }
 
 
@@ -145,6 +183,15 @@ def model(kind):
                                                                 n_heads=4),
                     loss_outer=next_token_loss),
                 thf.HFConfig(damping=1.0, cg_max_iter=25))
+    if kind == "moe_aux":  # the loss adds the Switch aux, as the example
+        return (init_moe_decoder_lm(g, n_layers=2, n_experts=4, dtype=f64,
+                                    **TINY_LM),
+                thf.HFModelFns(
+                    model_fn=lambda p, t: moe_decoder_lm_apply(
+                        p, t, n_heads=4, return_aux=True),
+                    loss_outer=lambda o, t: next_token_loss(o[0], t)
+                    + AUX_WEIGHT * o[1]),
+                thf.HFConfig(damping=1.0, cg_max_iter=25))
     raise ValueError(kind)
 
 
@@ -161,6 +208,10 @@ def config_for(case):
     if spec.get("cg"):
         config = thf.HFConfig(damping=config.damping,
                               cg_max_iter=spec["cg"])
+    if spec.get("diag_ef"):
+        config = thf.HFConfig(damping=config.damping,
+                              cg_max_iter=config.cg_max_iter,
+                              precond="diag_ef")
     return config
 
 
@@ -232,7 +283,8 @@ def run_case(case, z, meshes, out):
             fns, config, ravel, mesh, precond_ema_decay=spec.get("ema"),
             **kw)
         res = loop(params, state, stacked(batches))
-        p, stats = res[0], res[2]
+        p = sharded.unshard_params(res[0], specs, mesh, ravel)
+        stats = res[2]
         out[f"{case}/params"] = ravel.ravel(p).numpy()[None]
         out[f"{case}/num_cg_iters"] = stats.num_cg_iters.numpy()
         out[f"{case}/init_loss"] = stats.init_loss.numpy()
@@ -491,33 +543,6 @@ def megatron_split(mesh, out):
         out[f"split/{name}/shapes"] = np.array(sorted(shapes.seen))
 
 
-def megatron_refusals(mesh, out):
-    """Megatron blocks with context parallelism (the decoder LM under
-    ``batch_specs=P(None, "model")``) and with expert parallelism (the MoE
-    LM's expert specs with Megatron attention) over one model axis."""
-    errors = []
-    params, fns, config = model("dec")
-    specs = {"embed": P(), "pos": P(), "ln_f": P(),
-             "blocks": MEGATRON["blocks"]}
-    tokens = torch.randint(0, 12, (4, 8),
-                           generator=torch.Generator().manual_seed(1))
-    moe, moe_fns, _ = model("moe")
-    moe_specs = moe_param_specs(2)
-    for blk in moe_specs["blocks"]:
-        blk.update(qkv={"w": COL, "b": P("model")},
-                   proj={"w": ROW, "b": P()})
-    for p, f, kw in ((params, fns, dict(param_specs=specs,
-                                        batch_specs=P(None, "model"))),
-                     (moe, moe_fns, dict(param_specs=moe_specs))):
-        ravel = thf.TrainableRavel(p, pad_to_multiple=8)
-        step = sharded.make_sharded_hf_step(f, config, ravel, mesh, **kw)
-        try:
-            step(p, thf.init_state(ravel, config), (tokens, tokens))
-        except ValueError as e:
-            errors.append(str(e))
-    out["refuse/errors"] = np.array(errors)
-
-
 def megatron_on_device(mesh, out):
     """The encoder's forward and GGN matvec of the partitioned forward and
     of one process's in f32 on the rank's device."""
@@ -535,8 +560,38 @@ def megatron_on_device(mesh, out):
         out[f"card/{name}/mvp"] = mv.cpu().numpy()
 
 
+def joined_on_device(mesh, out):
+    """``moe_cp_ep``'s MoE LM (CP + EP, its loss adding the aux) in f32 on
+    the rank's device: the loss, gradient and GGN matvec under the axes
+    and the reduction that the sharded step's plan picks, and one
+    process's."""
+    device = rank_device()
+    params, fns, config = model("moe_aux")
+    params = tree_map(lambda t: t.to(device, torch.float32), params)
+    tokens = torch.randint(0, 12, (4, 8),
+                           generator=torch.Generator().manual_seed(2))
+    batch = (tokens.to(device), tokens.to(device))
+    ravel = thf.TrainableRavel(params, pad_to_multiple=8)
+    v = torch.randn(ravel.dim, generator=torch.Generator().manual_seed(3))
+    v = v.to(device)
+    spec = CASES["moe_cp_ep"]
+    plan = sharded._Plan(config, ravel, mesh, "data", "model",
+                         spec["param_specs"], spec["batch_specs"], "mean",
+                         stacked=False)
+    plan.whole_params(params)
+    local, axes, reduce = plan.place(batch)
+    for name, (b, ax, red) in (("joined", (local, axes, reduce)),
+                               ("one", (batch, {}, None))):
+        with collectives.axes(**ax):
+            loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, b, red)
+            for key, value in zip(("loss", "grad", "mvp"),
+                                  (loss.reshape(1), grad, mvp(v))):
+                out[f"card_moe/{name}/{key}"] = value.cpu().numpy()
+
+
 MEGATRON_SUITES = {"mega": megatron_derivatives, "split": megatron_split,
-                   "refuse": megatron_refusals, "card": megatron_on_device}
+                   "card": megatron_on_device, "card_moe": joined_on_device}
 
 
 def main():

@@ -6,7 +6,8 @@ sketch, Lanczos/SLQ, the batched select modes, the reduced-precision
 iterate store and checkpoints on the card against the CPU, and the
 data-parallel pieces on a 1-rank NCCL group (the prefetcher's sharding, a
 DP step equal to ``hf_step``), and the collectives, the pipeline's probe
-and the Megatron-partitioned forward on two gloo ranks sharing the card.
+the Megatron-partitioned forward and the MoE LM under context + expert
+parallelism on two gloo ranks sharing the card.
 
 These tests need a CUDA device and ``nvcc``, and skip without them.  They
 import no JAX, so on a machine without it run them without the JAX-only
@@ -735,3 +736,29 @@ def test_megatron_forward_and_matvec_on_card_match_one_process(cuda,
             assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), name
     np.testing.assert_array_equal(got[0]["card/tp/mvp"],
                                   got[1]["card/tp/mvp"])
+
+
+def test_moe_context_and_expert_parallel_on_card_match_one_process(
+        cuda, tmp_path):
+    """Two gloo ranks sharing ``cuda:0``: the narrow MoE LM of the
+    ``moe_cp_ep`` case under CP + EP (each rank 4 of 8 positions and 2 of
+    4 experts, the feed-forward routing the gathered positions, the loss
+    adding the aux) in f32, its loss, gradient and GGN matvec within 1e-5
+    of one process's (norm-wise), the ranks' values bitwise equal."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    import _torch_dp_worker as dp_worker
+    import _torch_sharded_worker as worker
+
+    procs = dp_worker.spawn_script(
+        worker.__file__,
+        [str(tmp_path / "none.npz"), str(tmp_path), "card_moe", "cuda:0"], 2)
+    got = dp_worker.collect(procs, tmp_path)
+    for r in got:
+        for name in ("loss", "grad", "mvp"):
+            a, b = r[f"card_moe/joined/{name}"], r[f"card_moe/one/{name}"]
+            assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), name
+    for name in ("loss", "grad", "mvp"):
+        np.testing.assert_array_equal(got[0][f"card_moe/joined/{name}"],
+                                      got[1][f"card_moe/joined/{name}"])

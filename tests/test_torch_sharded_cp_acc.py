@@ -5,7 +5,9 @@ tests/test_sharded.py's decoder LMs, in f64.
 the tokens' sequence axis split over the model axis (``batch_specs=P(None,
 "model")``) through ``make_sharded_hf_acc_step`` (``acc_cp``) and
 ``make_sharded_hf_train_loop`` (``loop_cp``), the stacked chunk or time
-axis prepended unsplit.
+axis prepended unsplit; and the loop with the EMA empirical-Fisher
+diagonal (``loop_cp_ema``, decay 0.9), each sample's gradient made whole
+over the model axis before it is squared (fault F3).
 
 Each case against the JAX package's ``make_sharded_hf_*`` on
 a (2, 2) mesh and the port's one-process step
@@ -22,7 +24,7 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 import _torch_sharded_parity as parity  # noqa: E402
 
 WORLD = 4
-CASES = ["acc_cp", "loop_cp"]
+CASES = ["acc_cp", "loop_cp", "loop_cp_ema"]
 
 
 @pytest.fixture(scope="module")

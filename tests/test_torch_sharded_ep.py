@@ -5,7 +5,17 @@ runs 2 experts; the router and the dispatch stay replicated; one
 package's ``make_sharded_hf_step`` under its ``moe_param_specs`` on a
 (1, 2) mesh and the port's one-process step, at 1e-8 then 1e-6
 (tests/_torch_sharded_parity.py); the two ranks' parameters equal bit for
-bit.
+bit.  At the same bounds, where the model axis's roles meet:
+
+- ``moe_cp``: the MoE LM under context parallelism (``batch_specs=P(None,
+  "model")``, no expert specs), its loss adding ``0.01 * aux`` as
+  examples_torch/run_moe_lm.py does; the feed-forward routes the gathered
+  positions as one process does, and the draws drop choices by capacity
+  (asserted on one process's forward), so routing each rank's positions
+  alone would not match;
+- ``moe_cp_ep``: the same under ``moe_param_specs`` too (CP + EP);
+- ``ep_diag``: EP with ``HFConfig(precond="diag_ef")``, 1 step: the
+  in-step empirical-Fisher diagonal of whole per-sample gradients (F3).
 """
 
 import pytest
@@ -19,14 +29,29 @@ import _torch_sharded_parity as parity  # noqa: E402
 WORLD = 2
 
 
+JOINED = ["moe_cp", "moe_cp_ep", "ep_diag"]
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    return parity.run_all(["ep"], tmp_path_factory.mktemp("sharded_ep"),
-                          WORLD)
+    return parity.run_all(["ep"] + JOINED,
+                          tmp_path_factory.mktemp("sharded_ep"), WORLD)
 
 
 def test_expert_parallel_step_matches_jax_and_one_process(two_ranks):
     parity.check(two_ranks, "ep")
+
+
+@pytest.mark.parametrize("case", JOINED)
+def test_joined_roles_match_jax_and_one_process(two_ranks, case):
+    parity.check(two_ranks, case)
+
+
+@pytest.mark.parametrize("case", ["moe_cp", "moe_cp_ep"])
+def test_context_parallel_moe_draws_drop_choices(two_ranks, case):
+    """The capacity drops choices in one process's forward of the draw."""
+    refs, _ = two_ranks
+    assert refs[case][1]["dropped"] > 0
 
 
 def test_expert_blocks_are_kept_sharded(two_ranks):
