@@ -38,7 +38,7 @@ prints no ``ok`` line:
    checked against the CG iterations, and the times of a step, of the
    diagonal and of one accumulated matvec;
 9. the narrow decoder LM and MoE LM (d_model 32, 2 layers, vocab 32, T 16):
-   2 HF steps each on the card against the same steps on the CPU in f64,
+   1 HF step each on the card against the same step on the CPU in f64,
    and the narrow encoder classifier's forward on both;
 10. the full-width decoder LM (19,505,152 parameters, batch 32 x T 128 of
     the affine next-token rule on vocab 1024, GGN,
@@ -61,17 +61,19 @@ prints no ``ok`` line:
     ``rich_stats`` (a finite m-history, ``format_rich_stats``); d) a
     sequential and a batched selection step from one saved state (the same
     CG iterations, shared losses within rtol 1e-4, the same selection
-    unless its margin is below that); f) a bf16-stored and an f32-stored
-    step from that state (the same CG iterations, reason and m-history bit
-    for bit; peak memory of each); g) ``save`` / ``load`` into a fresh
-    optimizer with both backends, one step each, bitwise equal;
+    unless its margin is below that); f) a bf16-stored step from that
+    state against d)'s sequential, f32-stored one (the same CG iterations,
+    reason and m-history bit for bit; peak memory of each); g) ``save``
+    with both backends and ``load`` of each into a fresh optimizer, one
+    step of the saved optimizer and of each fresh one, bitwise equal;
 13. the user's front door, f32: a) a synthetic MNIST-shaped dataset
     (``train_x.npy`` [2048, 28, 28, 1] in [0, 1], ``train_y.npy`` int64)
     through ``PrefetchLoader.from_npy`` (the g++-built batcher) and
     ``DevicePrefetcher`` on the card, every batch bitwise equal to the same
     loader seed read without it, and the queue pop against a blocking copy;
     b) ``examples_torch/run_resnet18_mnist.py --data`` on that dataset in a
-    subprocess (full-width ResNet-18, batch 32, 2 steps: the determinism
+    subprocess started before phase 12 (full-width ResNet-18, batch 32, 2
+    steps: the determinism
     self-test all true, the first step's loss down, finite losses, exit 0,
     launches equal to its CG iterations); c) All-CNN-C/CIFAR-100 as an
     ``nn.Sequential`` with explicit "SAME" padding through ``module_fns``
@@ -124,14 +126,18 @@ prints no ``ok`` line:
     (b32 x T128): context parallel (``batch_specs=P(None, "model")``) loss,
     gradient and GGN matvec within 1e-5 of one process's; under the
     Megatron ``param_specs`` (each rank computes 4 of 8 heads and 1024 of
-    2048 feed-forward columns per block) the loss, gradient, GGN and
-    one-shot Hessian matvecs within 1e-5 of one process's, the ranks'
-    gradients bitwise equal, each rank's forward FLOPs
-    (``FlopCounterMode``) exactly half of one process's blocks plus the
-    whole tied head, and each rank's peak of requested bytes of one
+    2048 feed-forward columns per block, and 256 of 512 features of the
+    embeddings and of the tied head's contraction, under the axes the
+    step's plan picks) the loss, gradient, GGN and one-shot Hessian
+    matvecs within 1e-5 of one process's, the ranks' gradients bitwise
+    equal, each rank's forward FLOPs (``FlopCounterMode``) exactly half of
+    one process's, its gathers (1) and sums (2 per block and 1 of the
+    logits) per forward, and each rank's peak of requested bytes of one
     gradient + build + matvec beside the replicated-weights form's and one
-    process's, and the gloo ms of a matvec; a 10-iteration CG solve of the
-    start's system on the ranks' blocks within 1e-5 of one process's under
+    process's, and the gloo ms of a matvec in turns with that of the blocks
+    alone partitioned, and of the logits sum and the stream gather that
+    the embeddings and head add; a 10-iteration CG solve of the start's
+    system on the ranks' blocks within 1e-5 of one process's under
     context parallelism and under the Megatron specs, and 1 step of each
     on the first 3 of the 6 blocks; each first step within 1e-5 of one
     process's ``hf_step`` where their CG iterations agree; d) the
@@ -155,21 +161,30 @@ prints no ``ok`` line:
     as one process does, on the rank's 4 of 8 experts), 1 step (finite,
     non-increasing, replicas bitwise, its CG iterations beside phase 11's,
     ms and each rank's peak) and its loss, gradient and GGN matvec within
-    1e-5 of one process's, with the top-2 choices capacity drops (> 0);
+    1e-5 of one process's, with the top-2 choices capacity drops (> 0),
+    the step on the first 2 of the 6 blocks, as d's;
     the same values under Megatron attention + EP and for the decoder LM
     under its Megatron specs + CP (the blocks computed gathered: the
     forward ran under no tensor axis, each rank's forward FLOPs exactly
     half of one process's; these are d's EP values and c's CP values,
     which go through these plans); fault F3: the decoder LM's first EMA
     empirical-Fisher diagonal under CP within 1e-5 of one process's
-    ``diag_EF`` on the whole sequence, with its ms and each rank's peak.
+    ``diag_EF`` on the whole sequence, with its ms and each rank's peak;
+    h) fault F5, on b's ranks as a (data 2, model 1) mesh: the MoE LM on
+    its first 2 blocks with its rows split over the data axis (each MoE
+    layer routing both ranks' rows together): the loss, gradient and GGN
+    matvec within 1e-5 of one process's on the whole batch, the top-2
+    choices capacity drops (> 0), each rank's forward and MoE FLOPs
+    against one process's, and 1 ``make_sharded_hf_step`` step (finite,
+    non-increasing, replicas bitwise, its ms and each rank's peak).
     Each rank counts its kernel launches, which must equal its CG
     iterations;
 16. pipeline parallelism (``parallel/pipeline.py``), phase 10's decoder LM,
     f32 with TF32 off and ``cudnn.deterministic`` on: a) NCCL on a 1-rank
     (stage 1) mesh, one microbatch: one pipelined ``hf_step`` equal to the
     sequential ``hf_step`` bit for bit; b) two gloo ranks sharing the card
-    (this script with ``--pipe-rank``), a (stage 2) mesh, 3 blocks per
+    (this script with ``--pipe-rank``, started with c) before phase 14 in
+    the whole script, before a) alone), a (stage 2) mesh, 3 blocks per
     stage, 4 microbatches of 8 (a bubble of 1/5): the loss, gradient, GGN
     matvec and Hessian matvec (one-shot) within relative norm 1e-5 of one
     process's sequential ones, a 10-iteration CG solve of the start's
@@ -181,7 +196,7 @@ prints no ``ok`` line:
     tick's shift and of the blocks' cotangent sum, each rank's peak memory
     against one process's; c) ``examples_torch/run_pipeline_parallel.py
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 4``,
-    started before a), exit 0 with the loss halved.  Each rank counts its
+    exit 0 with the loss halved.  Each rank counts its
     kernel launches, which must equal its CG iterations.
 
 Phases 10 and 11 also read the card's busy share from a ``torch.profiler``
@@ -189,8 +204,8 @@ trace of 5 matvecs.
 
 Phase 3 also holds the kernel against its plain version at the flat
 dimensions of phases 10 and 11, at the blocks of n / 2 that each rank
-of 15 b-d and g gives it and at the narrow examples' n of 15 f and 16 c
-(f32),
+of 15 b-d and g gives it, at 15 h's whole n and at the narrow examples'
+n of 15 f and 16 c (f32),
 and times it at each of those n beside its bound.  The ``kernels`` line
 gives K1's device time at the main path's n as ``ms``, with ``call_ms``
 (CUDA events around the call) and ``host_ms`` beside it, and the plain
@@ -284,6 +299,8 @@ BLOCK_N = {f"{path} block": n // 2
            for path, n in PATH_N.items() if path != "All-CNN-C"}
 BLOCK_N.update({f"{path} ({STEP_LAYERS[path]} layers) block": n // 2
                 for path, n in CUT_N.items()})
+# 15 h's step: the rows split over a data axis of 2, the CG space whole
+BLOCK_N["MoE LM (2 layers), rows split"] = CUT_N["MoE LM"]
 # the narrow examples of 15 f and 16 c: each one's TrainableRavel dim, per
 # rank of the model axis of 2 where the example shards the solver
 EXAMPLE_N = {"run_sharded.py --tp block": 256,
@@ -299,7 +316,6 @@ DEVICE_CALLS = 30  # profiled K1 calls per n
 # benchmarks/decoder_lm_bench.py and moe_lm_bench.py
 LM = dict(vocab=1024, d_model=512, n_heads=8, n_layers=6, d_ff=2048)
 RTOL_VEC = {torch.float32: 1e-6, torch.float64: 1e-13}  # FMA contraction
-PATH_CG = {}  # the CG iterations of a path's steps, for later phases
 RTOL_DOT = {torch.float32: 1e-5, torch.float64: 1e-12}  # summation order
 
 
@@ -898,7 +914,7 @@ def gib(nbytes):
 
 
 def phase_lm_narrow():
-    """The narrow decoder LM and MoE LM, 2 HF steps each on the card and on
+    """The narrow decoder LM and MoE LM, 1 HF step each on the card and on
     the CPU in f64, and the narrow encoder classifier's forward."""
     gen = torch.Generator().manual_seed(NARROW_SEED)
     narrow = dict(vocab=32, d_model=32, n_layers=2, d_ff=64, max_len=16,
@@ -915,12 +931,11 @@ def phase_lm_narrow():
         for dev in ("cuda", "cpu"):
             opt = lm_opt(tree_map(lambda t: t.to(dev), params), apply,
                          damping=1.0, cg_max_iter=10)
-            for _ in range(2):
-                opt.step((tokens.to(dev), tokens.to(dev)))
+            opt.step((tokens.to(dev), tokens.to(dev)))
             runs.append(opt.history)
         gpu, cpu = runs
-        same_history(gpu, cpu, rtols=(1e-9, 1e-9))
-        print(f"narrow {name} f64, 2 HF steps card vs CPU: cg iters "
+        same_history(gpu, cpu, rtols=(1e-9,))
+        print(f"narrow {name} f64, 1 HF step card vs CPU: cg iters "
               f"{gpu['num_cg_iters']} ({gpu['cg_reasons']}), dampings "
               f"{gpu['dampings']} on both; final losses "
               f"{gpu['final_losses']} vs {cpu['final_losses']}")
@@ -1120,7 +1135,6 @@ def phase_moe_lm():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = run_steps(opt, batch, 1, "the MoE LM path")
-    PATH_CG["MoE LM"] = opt.history["num_cg_iters"]
     print(f"MoE LM steps: peak memory "
           f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB")
     lm_matvec(opt, batch, gen, "MoE LM")
@@ -1299,15 +1313,24 @@ def phase_resnet_features():
     print("\n".join(rest[1:]))
     del sketch
 
-    # d) sequential and batched selection from one saved state
+    # d) sequential and batched selection from one saved state; the
+    # sequential step is also f)'s f32-stored one (the default
+    # configuration), with its peak
     saved, start = opt.state_dict(), opt.params
     runs = {}
+    stats, peaks = {}, {"allocated": {}, "requested": {}}
     for mode in ("sequential", "batched"):
         o = resnet_opt(start, rich_stats=True, backtracking_mode=mode,
                        linesearch=pkg.LineSearchConfig(mode=mode))
         o.load_state_dict(saved)
-        launches += run_steps(o, batch, 1, f"the {mode} selection step")
+        steps, _, allocated, requested = with_peak(functools.partial(
+            run_steps, o, batch, 1, f"the {mode} selection step"))
+        launches += steps
         runs[mode] = o
+        if mode == "sequential":
+            peaks["allocated"][None] = allocated
+            peaks["requested"][None] = requested
+            stats[None] = o.last_stats
     seq, bat = (runs[m].last_stats for m in ("sequential", "batched"))
     if (seq.num_cg_iters, seq.cg_reason) != (bat.num_cg_iters, bat.cg_reason):
         raise AssertionError("the two selection modes ran other CG solves")
@@ -1340,19 +1363,16 @@ def phase_resnet_features():
           f"Armijo {ls_margin:.2e}")
     del runs, seq, bat, g_tree
 
-    # f) bf16-stored against f32-stored iterates, one step each
-    stats, peaks = {}, {"allocated": {}, "requested": {}}
-    for store in (None, "bfloat16"):
-        o = resnet_opt(start, rich_stats=True,
-                       cg=pkg.CGConfig(store_dtype=store))
-        o.load_state_dict(saved)
-        steps, _, peaks["allocated"][store], peaks["requested"][store] = \
-            with_peak(functools.partial(
-                run_steps, o, batch, 1,
-                f"the {store or 'float32'}-stored step"))
-        launches += steps
-        stats[store] = o.last_stats
-        del o
+    # f) a bf16-stored step against d)'s f32-stored one
+    store = "bfloat16"
+    o = resnet_opt(start, rich_stats=True, cg=pkg.CGConfig(store_dtype=store))
+    o.load_state_dict(saved)
+    steps, _, peaks["allocated"][store], peaks["requested"][store] = \
+        with_peak(functools.partial(run_steps, o, batch, 1,
+                                    "the bfloat16-stored step"))
+    launches += steps
+    stats[store] = o.last_stats
+    del o
     a, b = stats[None], stats["bfloat16"]
     if not ((a.num_cg_iters, a.cg_reason) == (b.num_cg_iters, b.cg_reason)
             and torch.equal(a.detail.m_hist, b.detail.m_hist)):
@@ -1368,14 +1388,17 @@ def phase_resnet_features():
           f"{peaks['requested']['bfloat16']} bytes")
     del stats, a, b, start
 
-    # g) save, load into a fresh optimizer, one step each
+    # g) save with both backends, load each into a fresh optimizer, one
+    # step each and one of the saved optimizer
     with tempfile.TemporaryDirectory() as tmp:
+        loaded = {}
         for backend in ("torch", "npz"):
             path = os.path.join(tmp, f"ckpt-{backend}")
             opt.save(path, backend=backend)
-            fresh = resnet_opt(opt.params, rich_stats=True)
-            fresh.load(path, backend=backend)
-            launches += run_steps(opt, batch, 1, "the saved optimizer")
+            loaded[backend] = resnet_opt(opt.params, rich_stats=True)
+            loaded[backend].load(path, backend=backend)
+        launches += run_steps(opt, batch, 1, "the saved optimizer")
+        for backend, fresh in loaded.items():
             launches += run_steps(fresh, batch, 1, f"the {backend}-loaded one")
             if not (opt.history == fresh.history
                     and torch.equal(ravel.ravel(opt.params),
@@ -1384,9 +1407,9 @@ def phase_resnet_features():
                             for x, y in zip(opt.state, fresh.state))):
                 raise AssertionError(f"{backend}: the resumed step differs")
             print(f"g) {backend} backend: save, load into a fresh optimizer, "
-                  f"one step each: parameters, state and history equal bit "
-                  f"for bit")
-            del fresh
+                  f"one step each and one of the saved optimizer: "
+                  f"parameters, state and history equal bit for bit")
+        del loaded, fresh
     torch.backends.cudnn.deterministic = False
     return launches, peaks
 
@@ -1396,11 +1419,7 @@ def phase_data_path(data_dir):
     loader and the device prefetcher, every batch held bitwise against the
     same loader seed read without the prefetcher; the pop against a
     blocking copy of the same batch."""
-    rng = np.random.default_rng(0)
-    xp, yp = (os.path.join(data_dir, f) for f in ("train_x.npy",
-                                                  "train_y.npy"))
-    np.save(xp, rng.random((2048, 28, 28, 1), dtype=np.float32))
-    np.save(yp, rng.integers(0, 10, 2048).astype(np.int64))
+    xp, yp = mnist_npy(data_dir)
     t0 = time.perf_counter()
     _build.build("batcher.cpp")
     build_s = time.perf_counter() - t0
@@ -1448,19 +1467,46 @@ def phase_data_path(data_dir):
           f"of the same batch {statistics.median(copies):.3f}")
 
 
-def phase_flagship_example(data_dir):
-    """13 b): ``examples_torch/run_resnet18_mnist.py --data`` at full width
-    in a subprocess; returns its kernel launches."""
+def mnist_npy(data_dir, write=False):
+    """The paths of 13 a)'s synthetic MNIST-shaped ``.npy`` set in
+    ``data_dir`` (``train_x.npy`` [2048, 28, 28, 1] in [0, 1],
+    ``train_y.npy`` int64), written first when ``write``."""
+    xp, yp = (os.path.join(data_dir, f) for f in ("train_x.npy",
+                                                  "train_y.npy"))
+    if write:
+        rng = np.random.default_rng(0)
+        np.save(xp, rng.random((2048, 28, 28, 1), dtype=np.float32))
+        np.save(yp, rng.integers(0, 10, 2048).astype(np.int64))
+    return xp, yp
+
+
+def start_flagship():
+    """Write 13 a)'s data set into a directory of its own and start 13 b)'s
+    ``examples_torch/run_resnet18_mnist.py --data`` on it in a
+    subprocess, its output in files there (:func:`stop_examples` stops it
+    and removes the directory); returns ``(directory, handle)``."""
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
+    mnist_npy(data_dir, write=True)
     script = Path(__file__).resolve().parent / "examples_torch" / \
         "run_resnet18_mnist.py"
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(script), "--data", data_dir],
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    out = proc.stdout
-    if proc.returncode != 0:
+    files = [open(os.path.join(data_dir, f"example.{kind}"), "w+")
+             for kind in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, str(script), "--data",
+                             data_dir], stdout=files[0], stderr=files[1],
+                            text=True)
+    handle = (proc, files, time.perf_counter())
+    _STARTED.append((data_dir, [handle]))
+    return data_dir, handle
+
+
+def phase_flagship_example(handle):
+    """13 b): ``examples_torch/run_resnet18_mnist.py --data`` at full width
+    in a subprocess started by :func:`start_flagship`; returns its kernel
+    launches."""
+    returncode, out, err, wall = wait_example(handle, timeout=600)
+    if returncode != 0:
         raise AssertionError(f"run_resnet18_mnist.py exited "
-                             f"{proc.returncode}:\n{out}\n{proc.stderr[-3000:]}")
+                             f"{returncode}:\n{out}\n{err[-3000:]}")
     det = out.split("determinism self-test: ")[1].splitlines()[0]
     losses = [tuple(float(v) for v in line.split("loss ")[1].split(" |")[0]
                     .split(" -> "))
@@ -1474,7 +1520,8 @@ def phase_flagship_example(data_dir):
         raise AssertionError(f"run_resnet18_mnist.py:\n{out}")
     for line in out.splitlines():
         print(f"    | {line}")
-    print(f"13 b) run_resnet18_mnist.py --data: exit 0 in {wall:.1f} s; "
+    print(f"13 b) run_resnet18_mnist.py --data (started before phase 12): "
+          f"exit 0, read {wall:.1f} s after its start; "
           f"determinism self-test {det}; losses {losses}; fused_cg_update "
           f"launches {launches} = CG iterations {iters}")
     return launches
@@ -1599,9 +1646,9 @@ def phase_front_door(acc_matvec_ms, store_peaks):
     """Phase 13: the data path, the flagship example, the ``nn.Module``
     path and the sizing (see the module docstring); returns the kernel
     launches of b) and c)."""
-    with tempfile.TemporaryDirectory() as data_dir:
-        phase_data_path(data_dir)
-        launches = phase_flagship_example(data_dir)
+    data_dir, handle = EARLY.pop("13 b", None) or start_flagship()
+    phase_data_path(data_dir)
+    launches = phase_flagship_example(handle)
     launches += phase_module_path(acc_matvec_ms)
     phase_sizing(store_peaks)
     return launches
@@ -2002,9 +2049,9 @@ def check_dp_example(handle):
 
 def megatron_decoder_specs(n_layers):
     """tests/test_sharded.py:316-331's Megatron tree for the decoder LM:
-    QKV and FF1 by column, proj and FF2 by row (the step partitions the
-    blocks' compute), the embeddings by feature (gathered; the head is
-    tied; ``ln_f`` replicated)."""
+    QKV and FF1 by column, proj and FF2 by row, the embeddings by feature
+    (the step partitions the blocks' compute, the embeddings' lookup and
+    the tied head's contraction; ``ln_f`` replicated)."""
     P = pmesh.PartitionSpec
     col, row = P(None, "model"), P("model", None)
     return {"embed": P(None, "model"), "pos": P(None, "model"), "ln_f": P(),
@@ -2193,23 +2240,51 @@ def decoder_problem(n_layers=LM["n_layers"]):
     return params, (tokens, tokens), fns, config, ravel
 
 
-def forward_flops(fns, params, tokens, tensor=None):
-    """The FLOPs of one forward under the tensor axis ``tensor``
-    (``FlopCounterMode``: the matmuls)."""
+def megatron_axes(config, ravel, mesh, params, specs, batch):
+    """The forward's axes that the sharded step's plan picks for the
+    Megatron ``specs`` (the rows replicated): the model axis as the tensor
+    axis, with the leaves outside the blocks that it splits."""
+    plan = sharded._Plan(config, ravel, mesh, "data", "model", specs,
+                         pmesh.PartitionSpec(), "mean", stacked=False)
+    plan.whole_params(params)
+    return plan.place(batch)[1]
+
+
+def forward_flops(fns, params, tokens, axes=None):
+    """One forward under ``axes``: its FLOPs (``FlopCounterMode``: the
+    matmuls) and the gathers and sums over an axis that it calls
+    (``gather_from_axis``, ``reduce_from_axis``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    with torch.no_grad(), collectives.axes(tensor=tensor), \
-            FlopCounterMode(display=False) as counter:
-        fns.model_fn(params, tokens)
-    return counter.get_total_flops()
+    names = ("gather_from_axis", "reduce_from_axis")
+    calls = dict.fromkeys(names, 0)
+    originals = {name: getattr(collectives, name) for name in names}
+
+    def counted(name):
+        def call(x, axis, *args):
+            calls[name] += axis is not None
+            return originals[name](x, axis, *args)
+        return call
+
+    for name in names:
+        setattr(collectives, name, counted(name))
+    try:
+        with torch.no_grad(), collectives.axes(**(axes or {})), \
+                FlopCounterMode(display=False) as counter:
+            fns.model_fn(params, tokens)
+    finally:
+        for name in names:
+            setattr(collectives, name, originals[name])
+    return (counter.get_total_flops(), calls["gather_from_axis"],
+            calls["reduce_from_axis"])
 
 
-def values_and_peak(fns, config, ravel, params, batch, v, tensor=None):
-    """One gradient + build + GGN matvec under the tensor axis ``tensor``
-    (``None``: the whole forward): ``((loss, grad, mvp, mvp(v)), peak of
-    requested bytes)``."""
+def values_and_peak(fns, config, ravel, params, batch, v, axes=None):
+    """One gradient + build + GGN matvec under ``axes`` (``None``: the
+    whole forward): ``((loss, grad, mvp, mvp(v)), peak of requested
+    bytes)``."""
     def build():
-        with collectives.axes(tensor=tensor), precision_ctx(config):
+        with collectives.axes(**(axes or {})), precision_ctx(config):
             loss, grad, mvp = optimizer._build_matvec_and_grad(
                 fns, config, ravel, params, batch)
             return loss, grad, mvp, mvp(v)
@@ -2218,9 +2293,9 @@ def values_and_peak(fns, config, ravel, params, batch, v, tensor=None):
     return out, peak
 
 
-def hessian_matvec(fns, params, tokens, ravel, v, tensor=None):
-    """One-shot Hessian matvec (forward over reverse) under ``tensor``."""
-    with collectives.axes(tensor=tensor):
+def hessian_matvec(fns, params, tokens, ravel, v, axes=None):
+    """One-shot Hessian matvec (forward over reverse) under ``axes``."""
+    with collectives.axes(**(axes or {})):
         return ravel.ravel(hvp(
             lambda p: fns.loss_outer(fns.model_fn(p, tokens), tokens),
             params, ravel.unravel(v)))
@@ -2261,17 +2336,43 @@ def shard_decoder(mesh, rank, rec):
     del mvp
     whole = sharded.unshard_params(spec_blocks(params, specs, mesh), specs,
                                    mesh, ravel)
-    rec["tp_flops"] = forward_flops(fns, whole, tokens, axis)
+    tp_axes = megatron_axes(config, ravel, mesh, whole, specs, batch)
+    rec["tp_roles"] = roles(tp_axes) + sorted(tp_axes["tensor_leaves"])
+    rec["tp_flops"], rec["tp_gathers"], rec["tp_sums"] = forward_flops(
+        fns, whole, tokens, tp_axes)
     (tp_loss, tp_grad, tp_mvp, tp_mv), rec["tp_peak"] = values_and_peak(
-        fns, config, ravel, whole, batch, v, axis)
+        fns, config, ravel, whole, batch, v, tp_axes)
     rec["tp_grad"] = digest(tp_grad)
-    with collectives.axes(tensor=axis), precision_ctx(config):
-        rec["tp_mv_ms"] = statistics.median(host_ms(lambda: tp_mvp(v), 5))
+    with collectives.axes(**tp_axes), precision_ctx(config):
         solves["tp_cg"] = sharded_cg(shard, tp_mvp, tp_grad, config.damping)
-    del tp_mvp
+    # the matvec against the same one with the blocks alone partitioned
+    # (the embeddings and the head whole, as before their partition), in
+    # turns: the host's load moves between calls
+    with collectives.axes(tensor=axis), precision_ctx(config):
+        blocks_mvp = optimizer._build_matvec_and_grad(
+            fns, config, ravel, whole, batch)[2]
+    times = {"tp": [], "blocks": []}
+    for _ in range(5):
+        for key, mvp_, ax in (("tp", tp_mvp, tp_axes),
+                              ("blocks", blocks_mvp, dict(tensor=axis))):
+            with collectives.axes(**ax), precision_ctx(config):
+                times[key] += host_ms(lambda: mvp_(v), 1)
+    rec["tp_mv_ms"] = statistics.median(times["tp"])
+    rec["tp_blocks_mv_ms"] = statistics.median(times["blocks"])
+    del tp_mvp, blocks_mvp
+    # the gloo ms of the collectives that the embeddings' and the head's
+    # partition adds to a pass: the sum of the partial [32, 128, V]
+    # logits, and the gather of the [32, 128, d / 2] stream blocks
+    logits = torch.randn(32, 128, LM["vocab"], device="cuda")
+    stream = torch.randn(32, 128, LM["d_model"] // 2, device="cuda")
+    rec["tp_logits_sum_ms"] = statistics.median(
+        host_ms(lambda: collectives._reduce(logits, axis), 5))
+    rec["tp_stream_gather_ms"] = statistics.median(
+        host_ms(lambda: collectives._gather(stream, axis, 2), 5))
+    del logits, stream
     with precision_ctx(config):
         tp = [tp_loss, tp_grad, tp_mv,
-              hessian_matvec(fns, whole, tokens, ravel, v, axis)]
+              hessian_matvec(fns, whole, tokens, ravel, v, tp_axes)]
     _, rec["plain_peak"] = values_and_peak(fns, config, ravel, params, batch,
                                            v)
     t_g = time.perf_counter()
@@ -2301,7 +2402,7 @@ def shard_decoder(mesh, rank, rec):
     del cp_step, tp_step, tp_params, whole
     dist.barrier()
     if rank == 0:
-        rec["one_flops"] = forward_flops(fns, params, tokens)
+        rec["one_flops"] = forward_flops(fns, params, tokens)[0]
         (r_loss, r_grad, r_mvp, r_mv), rec["one_peak"] = values_and_peak(
             fns, config, ravel, params, batch, v)
         with precision_ctx(config):
@@ -2460,7 +2561,8 @@ def joined_moe(fns, ravel, mesh, params, batch, v, rec):
 
 def roles(axes):
     """The roles of more than one rank that a forward ran under."""
-    return [k for k, a in axes.items() if a is not None and a.size > 1]
+    return [k for k, a in axes.items()
+            if isinstance(a, collectives.Axis) and a.size > 1]
 
 
 def joined_decoder(fns, config, ravel, mesh, params, batch, local, axes,
@@ -2510,11 +2612,13 @@ def joined_decoder_reference(fns, config, ravel, params, batch, ema, rec):
 
 def shard_joined(mesh, rank, rec):
     """15 g) on one rank: 1 step of the full-width MoE LM under CP + EP
-    (``moe_param_specs`` and ``batch_specs=P(None, "model")``) with its
-    peak and launches.  15 g's values come from 15 c and 15 d, which
-    share one process's references with it."""
-    params, batch, fns, config, ravel = moe_problem()
-    specs = models.moe_param_specs(LM["n_layers"])
+    (``moe_param_specs`` and ``batch_specs=P(None, "model")``) on its first
+    :data:`STEP_LAYERS` blocks, as 15 d's EP step, with its peak and
+    launches.  15 g's values, at all 6 blocks, come from 15 c and 15 d,
+    which share one process's references with it."""
+    layers = STEP_LAYERS["MoE LM"]
+    params, batch, fns, config, ravel = moe_problem(layers)
+    specs = models.moe_param_specs(layers)
     step = sharded.make_sharded_hf_step(
         fns, config, ravel, mesh, param_specs=specs,
         batch_specs=pmesh.PartitionSpec(None, "model"))
@@ -2528,6 +2632,67 @@ def shard_joined(mesh, rank, rec):
     rec["g_launches"] = ops.fused_cg_update.launches
     rec["g_peak"] = torch.cuda.max_memory_allocated()
     rec["g_block"] = list(p["blocks"][0]["w1"].shape)
+    rec["g_step_n"] = ravel.dim
+
+
+def shard_rows(mesh, rank, rec):
+    """15 h) on one rank of a (data 2, model 1) mesh: fault F5's check on
+    the full-width MoE LM's first :data:`STEP_LAYERS` blocks with its rows
+    split over the data axis (the default batch specs): the loss,
+    gradient and GGN matvec through the step's plan (each rank's 16 rows
+    routed with the other's), the FLOPs of the forward and of one MoE
+    feed-forward, and 1 ``make_sharded_hf_step`` step with its launches
+    and peak.  Rank 0 then computes one process's values and FLOPs on the
+    whole batch and the choices that capacity drops."""
+    import torch.distributed as dist
+
+    params, batch, fns, config, ravel = moe_problem(STEP_LAYERS["MoE LM"])
+    v = torch.randn(ravel.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8))
+    values, mvp, local, axes = plan_values(fns, ravel, mesh, params, batch,
+                                           v)
+    del mvp
+    rec["h_roles"] = roles(axes)
+    rec["h_grad"] = digest(values[1])
+    rec["h_flops"], rec["h_moe_flops"] = moe_flops(fns, params, local[0],
+                                                   axes)
+    step = sharded.make_sharded_hf_step(fns, config, ravel, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.fused_cg_update.launches = 0
+    _, _, rec["h_steps"], _ = timed_steps(
+        step, params, pkg.init_state(ravel, config), batch, 1, ravel)
+    rec["h_launches"] = ops.fused_cg_update.launches
+    rec["h_peak"] = torch.cuda.max_memory_allocated()
+    rec["h_step_n"] = ravel.dim
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        rec["h_dropped"] = dropped_choices(fns, params, batch[0])
+        rec["h_one_flops"], rec["h_one_moe_flops"] = moe_flops(
+            fns, params, batch[0], {})
+        with precision_ctx(config):
+            loss, grad, mvp = optimizer._build_matvec_and_grad(
+                fns, config, ravel, params, batch)
+            ref = [loss, grad, mvp(v)]
+        rec["h_rel"] = [rel(a, b) for a, b in zip(values, ref)]
+
+
+def moe_flops(fns, params, tokens, axes):
+    """The FLOPs (``FlopCounterMode``) of the MoE LM's forward on
+    ``tokens`` under ``axes`` and of its first MoE feed-forward alone on an
+    input of their shape (the FLOPs depend on the shapes alone)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    whole = forward_flops(fns, params, tokens, axes)[0]
+    h = torch.zeros(tuple(tokens.shape) + (LM["d_model"],), device="cuda")
+    with torch.no_grad(), collectives.axes(**axes), \
+            FlopCounterMode(display=False) as counter:
+        models.moe._moe_ffn(params["blocks"][0], h, 1.25)
+    return whole, counter.get_total_flops()
 
 
 def f2_values(fns, config, params, batch, local, mesh, v, dtype):
@@ -2612,10 +2777,13 @@ def shard_rank(rank, world, port, out_path):
                                  backend="gloo", device="cuda:0")
     mesh = pmesh.make_mesh(axis_names=("data", "model"), shape=(1, world))
     data_mesh = pmesh.make_mesh()
+    rows_mesh = pmesh.make_mesh(axis_names=("data", "model"),
+                                shape=(world, 1))
     rec = {"rank": rank, "g_time": 0.0}
     for part, fn, on in (("b", shard_resnet, mesh), ("e", shard_f2, data_mesh),
                          ("c", shard_decoder, mesh), ("d", shard_moe, mesh),
-                         ("g", shard_joined, mesh)):
+                         ("g", shard_joined, mesh),
+                         ("h", shard_rows, rows_mesh)):
         t0 = time.perf_counter()
         fn(on, rank, rec)
         gc.collect()
@@ -2739,14 +2907,18 @@ def phase_shard_decoder(r0, r1):
         raise AssertionError(f"15 c): the fixed-length CG solves vs one "
                              f"process's: x, m under CP {r0['cp_cg']}, "
                              f"Megatron {r0['tp_cg']}")
-    # the blocks' matmuls split in halves; the tied head stays whole
-    head = 2 * 32 * 128 * LM["d_model"] * LM["vocab"]
-    if not (r0["tp_flops"] == r1["tp_flops"]
-            and 2 * r0["tp_flops"] == r0["one_flops"] + head):
-        raise AssertionError(f"15 c): forward FLOPs per rank "
-                             f"{r0['tp_flops']}, {r1['tp_flops']} against "
-                             f"one process's {r0['one_flops']}: the blocks "
-                             f"are not split in halves")
+    # the blocks' matmuls and the tied head's split in halves: one gather
+    # of the embeddings' stream and one sum per sub-layer and of the head's
+    # partial logits per forward
+    want = (["tensor", "embed", "pos"], 1, 2 * LM["n_layers"] + 1)
+    for r in (r0, r1):
+        got = (r["tp_roles"], r["tp_gathers"], r["tp_sums"])
+        if not (got == want and 2 * r["tp_flops"] == r0["one_flops"]):
+            raise AssertionError(f"15 c): rank {r['rank']}: forward FLOPs "
+                                 f"{r['tp_flops']} against one process's "
+                                 f"{r0['one_flops']}, roles, gathers, sums "
+                                 f"{got} against {want}: not split in "
+                                 f"halves")
     ref = r0["c_ref_steps"]
     bounds = []
     for key, rels in (("cp_steps", r0["cp_rel"]), ("tp_steps", r0["tp_rel"])):
@@ -2774,20 +2946,32 @@ def phase_shard_decoder(r0, r1):
           f"Megatron param_specs (qkv w block {r0['tp_block']} per rank; "
           f"each rank computes {LM['n_heads'] // 2} of {LM['n_heads']} "
           f"heads and {LM['d_ff'] // 2} of {LM['d_ff']} feed-forward "
-          f"columns per block, 2 gloo sums per block): loss, gradient, GGN "
-          f"and Hessian (one-shot) matvecs vs one process {tpv[0]:.2e}, "
-          f"{tpv[1]:.2e}, {tpv[2]:.2e}, {tpv[3]:.2e} (<= 1e-5), the ranks' "
-          f"gradients bitwise equal; forward FLOPs per rank "
-          f"{r0['tp_flops']:,} against one process's {r0['one_flops']:,} "
-          f"({r0['tp_flops'] / r0['one_flops']:.2%}: the blocks halved, the "
-          f"tied head whole); peak requested bytes of one gradient + build "
+          f"columns per block, 2 gloo sums per block, and "
+          f"{LM['d_model'] // 2} of {LM['d_model']} features of embed and "
+          f"pos and of the tied head's contraction: per forward "
+          f"{r0['tp_gathers']} gather of the [32, 128, {LM['d_model']}] "
+          f"stream and {r0['tp_sums']} sums, {2 * LM['n_layers']} of the "
+          f"blocks and 1 of the [32, 128, {LM['vocab']}] logits): loss, "
+          f"gradient, GGN and Hessian (one-shot) matvecs vs one process "
+          f"{tpv[0]:.2e}, {tpv[1]:.2e}, {tpv[2]:.2e}, {tpv[3]:.2e} (<= "
+          f"1e-5), the ranks' gradients bitwise equal; forward FLOPs per "
+          f"rank {r0['tp_flops']:,} / {r1['tp_flops']:,} against one "
+          f"process's {r0['one_flops']:,} "
+          f"({r0['tp_flops'] / r0['one_flops']:.2%}: exactly half); peak "
+          f"requested bytes of one gradient + build "
           f"+ GGN matvec per rank {gib(r0['tp_peak']):.3f} / "
           f"{gib(r1['tp_peak']):.3f} GiB partitioned, "
           f"{gib(r0['plain_peak']):.3f} / {gib(r1['plain_peak']):.3f} GiB "
           f"with replicated weights (param_specs=None), one process "
           f"{gib(r0['one_peak']):.3f} GiB; GGN matvec "
           f"{r0['tp_mv_ms']:.1f} ms partitioned (gloo on one card, host "
-          f"clock, rank 0) against one process's {r0['one_mv_ms']:.1f} ms; a "
+          f"clock, median of 5, rank 0; {r0['tp_blocks_mv_ms']:.1f} ms with "
+          f"the blocks alone partitioned, the two timed in turns) against "
+          f"one process's {r0['one_mv_ms']:.1f} ms; the partitioned "
+          f"embeddings and head add per pass a gloo sum of the [32, 128, "
+          f"{LM['vocab']}] logits {r0['tp_logits_sum_ms']:.1f} ms and a "
+          f"gather of the [32, 128, {LM['d_model']}] stream "
+          f"{r0['tp_stream_gather_ms']:.1f} ms (median of 5); a "
           f"{CG_CHECK_ITERS}-iteration CG solve (no stop) of the start's "
           f"system on the ranks' blocks vs one process's: iterate "
           f"{r0['cp_cg'][0]:.2e}, m-history {r0['cp_cg'][1]:.2e} under CP, "
@@ -2843,6 +3027,9 @@ def phase_shard_moe(r0, r1):
 
 def phase_shard_joined(r0, r1):
     step_wall, wall = r0["wall_g"], r0["wall_g"] + r0["g_time"]
+    if r0["g_step_n"] != CUT_N["MoE LM"]:
+        raise AssertionError(f"15 g): the step's flat dimension "
+                             f"{r0['g_step_n']} is not phase 3's")
     same_on_ranks("15 g)", r0, r1, "g_steps")
     check_losses("15 g)", r0["g_steps"])
     launches = sum(launches_of("15 g)", r, "g_launches", "g_steps")
@@ -2879,7 +3066,7 @@ def phase_shard_joined(r0, r1):
         raise AssertionError(f"15 g): the first EMA diagonal under CP vs "
                              f"one process's diag_EF: {r0['g_diag_rel']}")
     s = r0["g_steps"][0]
-    phase11 = PATH_CG.get("MoE LM", "not run")
+    d_step = r0["d_steps"][0]
     cp_ep, mega_ep, mega_cp = (rels[k] for k in ("cp_ep", "mega_ep",
                                                  "mega_cp"))
     print(f"15 g) the same two ranks ({wall:.1f} s: the step "
@@ -2887,19 +3074,21 @@ def phase_shard_joined(r0, r1):
           f"{r0['g_time']:.1f} s on rank 0), where the model "
           f"axis's roles meet: the full-width MoE LM ({MOE_N:,} parameters)"
           f" under CP + EP (moe_param_specs and batch_specs=P(None, "
-          f"'model'); w1 block {r0['g_block']}; attention on 64 of 128 "
-          f"positions, the MoE on all 4,096 tokens on 4 of 8 experts): "
-          f"loss, gradient, GGN matvec vs one process {cp_ep[0]:.2e}, "
-          f"{cp_ep[1]:.2e}, {cp_ep[2]:.2e} (relative, norm-wise, <= 1e-5);"
-          f" capacity drops {r0['g_dropped']} of "
-          f"{2 * 32 * 128 * LM['n_layers']:,} top-2 choices in one "
-          f"process's forward (> 0); 1 step: loss {s['init']:.6f} -> "
+          f"'model'); attention on 64 of 128 positions, the MoE on all "
+          f"4,096 tokens on 4 of 8 experts): loss, gradient, GGN matvec vs "
+          f"one process {cp_ep[0]:.2e}, {cp_ep[1]:.2e}, {cp_ep[2]:.2e} "
+          f"(relative, norm-wise, <= 1e-5); capacity drops "
+          f"{r0['g_dropped']} of {2 * 32 * 128 * LM['n_layers']:,} top-2 "
+          f"choices in one process's forward (> 0); 1 step on the first "
+          f"{STEP_LAYERS['MoE LM']} of the {LM['n_layers']} blocks "
+          f"({r0['g_step_n']:,} parameters, w1 block {r0['g_block']}, K1 "
+          f"on {r0['g_step_n'] // 2:,} per rank): loss {s['init']:.6f} -> "
           f"{s['final']:.6f}, {s['iters']} CG iterations on both ranks "
-          f"(phase 11's one process: {phase11}), {s['ms']:.1f} ms, replicas "
-          f"bitwise equal; peak memory per rank {gib(r0['g_peak']):.2f} / "
-          f"{gib(r1['g_peak']):.2f} GiB (EP alone, 15 d: 30.81 GiB in PR "
-          f"7; one process, phase 11: 39.22 GiB); launches {launches} = "
-          f"the ranks' CG iterations")
+          f"(15 d's EP step: {d_step['iters']}), {s['ms']:.1f} ms (15 d: "
+          f"{d_step['ms']:.1f} ms), replicas bitwise equal; peak memory per "
+          f"rank {gib(r0['g_peak']):.2f} / {gib(r1['g_peak']):.2f} GiB "
+          f"(15 d's EP step {gib(r0['d_peak']):.2f} GiB); launches "
+          f"{launches} = the ranks' CG iterations")
     print(f"15 g) the MoE LM under Megatron attention + EP (the blocks "
           f"computed gathered, the experts split): loss, gradient, GGN "
           f"matvec vs one process {mega_ep[0]:.2e}, {mega_ep[1]:.2e}, "
@@ -2921,6 +3110,58 @@ def phase_shard_joined(r0, r1):
           f"{gib(r0['g_diag_peak']):.3f} / {gib(r1['g_diag_peak']):.3f} GiB"
           f" per rank against one process's "
           f"{gib(r0['g_one_diag_peak']):.3f} GiB")
+    return launches
+
+
+def phase_shard_rows(r0, r1):
+    if r0["h_step_n"] != CUT_N["MoE LM"]:
+        raise AssertionError(f"15 h): the step's flat dimension "
+                             f"{r0['h_step_n']} is not phase 3's")
+    same_on_ranks("15 h)", r0, r1, "h_steps")
+    check_losses("15 h)", r0["h_steps"])
+    if r0["h_roles"] != ["batch"]:
+        raise AssertionError(f"15 h): the forward ran under the axes "
+                             f"{r0['h_roles']}, not the batch axis")
+    if not max(r0["h_rel"]) <= 1e-5:
+        raise AssertionError(f"15 h): loss, gradient, GGN matvec vs one "
+                             f"process's: {r0['h_rel']}")
+    if r0["h_grad"] != r1["h_grad"]:
+        raise AssertionError("15 h): the ranks' gradients differ")
+    if not r0["h_dropped"] > 0:
+        raise AssertionError("15 h): capacity dropped no choice, so routing "
+                             "across the rows was not exercised")
+    # every rank routes and runs the whole batch's tokens in its MoE
+    if not r0["h_moe_flops"] == r1["h_moe_flops"] == r0["h_one_moe_flops"]:
+        raise AssertionError(f"15 h): a MoE feed-forward's FLOPs per rank "
+                             f"{r0['h_moe_flops']}, {r1['h_moe_flops']} "
+                             f"against one process's {r0['h_one_moe_flops']}")
+    launches = sum(launches_of("15 h)", r, "h_launches", "h_steps")
+                   for r in (r0, r1))
+    rel_ = r0["h_rel"]
+    s = r0["h_steps"][0]
+    layers = STEP_LAYERS["MoE LM"]
+    print(f"15 h) fault F5, the same two ranks as a (data 2, model 1) mesh "
+          f"({r0['wall_h']:.1f} s), the full-width MoE LM on the first "
+          f"{layers} of the {LM['n_layers']} blocks ({r0['h_step_n']:,} "
+          f"parameters; 8 experts, top-2, capacity 1.25, b32 x T128, f32) "
+          f"with its rows split over the data axis (16 + 16 rows; each MoE "
+          f"layer gathers both ranks' rows and routes all 4,096 tokens as "
+          f"one process does): loss, gradient, GGN matvec vs one process on "
+          f"the whole batch {rel_[0]:.2e}, {rel_[1]:.2e}, {rel_[2]:.2e} "
+          f"(relative, norm-wise, <= 1e-5), the ranks' gradients bitwise "
+          f"equal; capacity drops {r0['h_dropped']} of "
+          f"{2 * 32 * 128 * layers:,} top-2 choices in one process's "
+          f"forward (> 0); forward FLOPs per rank {r0['h_flops']:,} / "
+          f"{r1['h_flops']:,} against one process's {r0['h_one_flops']:,} "
+          f"({r0['h_flops'] / r0['h_one_flops']:.2%}), of which one MoE "
+          f"feed-forward {r0['h_moe_flops']:,} per rank against one "
+          f"process's {r0['h_one_moe_flops']:,} (the whole group on every "
+          f"rank); 1 step (K1 on {r0['h_step_n']:,}): loss "
+          f"{s['init']:.6f} -> {s['final']:.6f}, {s['iters']} CG "
+          f"iterations on both ranks, {s['ms']:.1f} ms, replicas bitwise "
+          f"equal; peak memory per rank {gib(r0['h_peak']):.2f} / "
+          f"{gib(r1['h_peak']):.2f} GiB; launches {launches} = the ranks' "
+          f"CG iterations")
     return launches
 
 
@@ -2996,12 +3237,13 @@ def phase_model_axis():
     # f) started before (all wait on the host far more than on the card)
     examples = EARLY.pop("15 f", None) or model_axis_examples()
     (r0, r1), wall = two_ranks()
-    print(f"15 b-e, g) two gloo ranks sharing the card: {wall:.1f} s with "
-          f"start-up")
+    print(f"15 b-e, g, h) two gloo ranks sharing the card: {wall:.1f} s "
+          f"with start-up")
     launches += phase_shard_resnet(r0, r1)
     launches += phase_shard_decoder(r0, r1)
     launches += phase_shard_moe(r0, r1)
     launches += phase_shard_joined(r0, r1)
+    launches += phase_shard_rows(r0, r1)
     launches += check_model_axis_examples(examples)
     torch.backends.cudnn.deterministic = False
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
@@ -3182,33 +3424,37 @@ def pipe_rank(rank, world, port, out_path):
     print(f"rank {rank}/{world}: ok")
 
 
-def phase_pipe_two_ranks():
-    """16 b): two gloo ranks sharing the card; returns both ranks' step
-    launches."""
+def start_pipe_ranks():
+    """Start 16 b)'s two gloo ranks (this script with ``--pipe-rank``),
+    their output and records in a directory of their own
+    (:func:`stop_examples` stops them and removes it); returns what
+    :func:`phase_pipe_two_ranks` takes."""
     port = free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    handles = []
+    for r in range(2):
+        files = [open(os.path.join(tmp, f"rank{r}.{kind}"), "w+")
+                 for kind in ("out", "err")]
+        proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--pipe-rank",
-             str(r), "2", str(port), paths[r]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=600)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        wall = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0 or f"rank {r}/2: ok" not in out:
-                raise AssertionError(f"16 b) rank {r} exited "
-                                     f"{p.returncode}:\n{out[-4000:]}")
-        r0, r1 = (json.load(open(path)) for path in paths)
+             str(r), "2", str(port), os.path.join(tmp, f"rank{r}.json")],
+            stdout=files[0], stderr=files[1], text=True)
+        handles.append((proc, files, time.perf_counter()))
+    _STARTED.append((tmp, handles))
+    return tmp, handles
+
+
+def phase_pipe_two_ranks(started):
+    """16 b): two gloo ranks sharing the card, started by
+    :func:`start_pipe_ranks`; returns both ranks' step launches."""
+    tmp, handles = started
+    for r, handle in enumerate(handles):
+        returncode, out, err, wall = wait_example(handle, timeout=900)
+        if returncode != 0 or f"rank {r}/2: ok" not in out:
+            raise AssertionError(f"16 b) rank {r} exited {returncode}:\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+    r0, r1 = (json.load(open(os.path.join(tmp, f"rank{r}.json")))
+              for r in range(2))
     same_on_ranks("16 b)", r0, r1, "steps")
     check_losses("16 b)", r0["steps"])
     launches = sum(launches_of("16 b)", r, "launches", "steps")
@@ -3231,9 +3477,9 @@ def phase_pipe_two_ranks():
              else "no bound: the CG iterations differ")
     values = ", ".join(f"{x:.2e}" for x in r0["values_rel"])
     fwd = ", ".join(f"{k} {x:.2e}" for k, x in r0["fwd_rel"].items())
-    print(f"16 b) two gloo ranks sharing the card, (stage 2) mesh "
-          f"({wall:.1f} s with start-up; the values {r0['wall_values']:.1f} "
-          f"s), the decoder LM's 6 blocks as 3 per stage, {PIPE_MICRO} "
+    print(f"16 b) two gloo ranks sharing the card, (stage 2) mesh (read "
+          f"{wall:.1f} s after their start; the values "
+          f"{r0['wall_values']:.1f} s), the decoder LM's 6 blocks as 3 per stage, {PIPE_MICRO} "
           f"microbatches of {32 // PIPE_MICRO} (bubble 1/{PIPE_MICRO + 1}): "
           f"loss, gradient, GGN matvec, Hessian matvec vs one process's "
           f"sequential ones {values} (relative, norm-wise, <= 1e-5); a "
@@ -3263,8 +3509,8 @@ PIPE_EXAMPLE_DONE = "next-token loss halved through the pipelined model; done."
 
 
 def check_pipe_example(handle):
-    """16 c): the pipeline example, started before 16 a; returns its four
-    ranks' launches."""
+    """16 c): the pipeline example, started before phase 14 (or 16 a,
+    alone); returns its four ranks' launches."""
     returncode, out, err, wall = wait_example(handle)
     if returncode != 0 or out.count(PIPE_EXAMPLE_DONE) != 1:
         raise AssertionError(f"run_pipeline_parallel.py exited "
@@ -3277,22 +3523,29 @@ def check_pipe_example(handle):
         print(f"    | {line}")
     print(f"16 c) run_pipeline_parallel.py --backend gloo under "
           f"torch.distributed.run --nproc-per-node 4 (4 stages on the card, "
-          f"started before 16 a): exit 0, read {wall:.1f} s after its start, "
+          f"started early): exit 0, read {wall:.1f} s after its start, "
           f"the loss halved, each step printed once (rank 0); launches "
           f"{launches} = the four ranks' CG iterations")
     return launches
+
+
+def pipeline_runs():
+    """Start 16 b)'s ranks and 16 c)'s example."""
+    return (start_pipe_ranks(),
+            start_examples([("run_pipeline_parallel.py", [], 4)])[0])
 
 
 def phase_pipeline():
     """Phase 16 (module docstring); returns the kernel launches."""
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
-    # c) beside a-b: they wait on the host far more than on the card
-    (example,) = start_examples([("run_pipeline_parallel.py", [], 4)])
+    # b) and c) beside a, or from before phase 14 in the whole script:
+    # their ranks wait on the host far more than on the card
+    ranks, example = EARLY.pop("16 b-c", None) or pipeline_runs()
     launches = phase_pipe_nccl()
     gc.collect()
     torch.cuda.empty_cache()
-    launches += phase_pipe_two_ranks()
+    launches += phase_pipe_two_ranks(ranks)
     launches += check_pipe_example(example)
     torch.backends.cudnn.deterministic = False
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
@@ -3359,11 +3612,13 @@ def run_all_phases(name):
     launches += phase_moe_lm()
     lap(11)
     EARLY["15 f"] = model_axis_examples()
+    EARLY["13 b"] = start_flagship()
     steps, store_peaks = phase_resnet_features()
     launches += steps
     lap(12)
     launches += phase_front_door(acc_matvec_ms, store_peaks)
     lap(13)
+    EARLY["16 b-c"] = pipeline_runs()
     launches += phase_data_parallel()
     launches += phase_model_axis()
     launches += phase_pipeline()

@@ -8,8 +8,10 @@ reference cg.py:152-170).  ``--tp`` also splits the weights over the
 model axis (tensor parallelism: each rank keeps its blocks between steps).
 ``--megatron`` trains a small transformer encoder under the Megatron specs
 of tests/test_sharded.py (QKV and FF1 split by column, proj and FF2 by
-row): each rank also computes only its heads and its feed-forward
-columns, with one sum over the model axis per sub-layer.
+row, the embeddings and the head by feature): each rank also computes
+only its heads and its feed-forward columns, with one sum over the model
+axis per sub-layer, and its features of the embeddings and its classes
+of the head, each gathered over the axis.
 
 Usage (rank 0 prints)::
 
@@ -56,7 +58,8 @@ ENCODER = dict(vocab=32, d_model=32, n_heads=4, n_layers=2, d_ff=64,
 
 def megatron_specs(n_layers):
     """QKV and FF1 by column, proj and FF2 by row; the embeddings and the
-    head by feature (gathered: their compute stays whole)."""
+    head by feature (each rank computes its block, gathered over the
+    axis)."""
     col, row = P(None, "model"), P("model", None)
     return {"embed": P(None, "model"), "pos": P(None, "model"),
             "head": {"w": col, "b": P("model")},

@@ -39,9 +39,18 @@ Switch aux is the whole program's on every rank; ``return_aux=True``
 returns the rank's share of it, ``aux / M``, so that the shares sum to
 it as the loss's do.
 
-Rows split over a data axis are routed by each rank alone (its capacity,
-slot order and dropped choices), not as the whole program routes them:
-fault F5, documented in :mod:`..parallel.sharded`.
+Rows split over a data axis (read from
+:func:`~..parallel.collectives.batch_axis`) are routed the same way: the
+feed-forward gathers every rank's rows
+(:func:`~..parallel.collectives.all_gather`), routes all ``N T`` tokens
+as the whole program does, and keeps the rank's rows; under context
+parallelism too it gathers both.  The Switch aux is then the whole
+batch's on every rank: the ranks' averaged losses count it once, and
+when they are summed (``reduction="sum"``) ``return_aux=True`` returns
+the rank's share, ``aux / D`` (:func:`~..parallel.collectives.batch_share`).
+Per-sample gradients suspend the batch axis
+(:func:`~..parallel.collectives.local_batch`): each sample is routed
+alone, as the JAX package's ``vmap`` over samples routes it.
 """
 
 from __future__ import annotations
@@ -59,12 +68,12 @@ from ..utils.remat import checkpoint
 from .transformer import (
     _attention_sublayer,
     _dense,
-    _embed,
+    _inputs,
     _layernorm,
     _ln_init,
     _normal,
     _one_hot,
-    _positions,
+    _tied_head,
 )
 
 
@@ -175,10 +184,12 @@ def _topk_dispatch(probs, capacity: int, top_k: int = 2):
 def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
              top_k: int = 2):
     """Top-k MoE feed-forward over [N, T, d] activations -> (out, aux).
-    Under a sequence axis ``h`` holds the rank's positions: they are
-    routed among every rank's (module docstring)."""
-    seq = collectives.sequence_axis()
+    Under a sequence axis ``h`` holds the rank's positions, under a batch
+    axis the rank's rows: they are routed among every rank's (module
+    docstring)."""
+    seq, rows = collectives.sequence_axis(), collectives.batch_axis()
     h = collectives.all_gather(h, seq, dim=1)
+    h = collectives.all_gather(h, rows, dim=0)
     N, T, d = h.shape
     E = blk["gate"].shape[-1]
     if top_k not in (1, 2):
@@ -223,7 +234,8 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
     out = torch.einsum("sgec,secd->sgd", combine, ye)
     if ep is not None:
         out = collectives.all_reduce_sum(out, ep)
-    return collectives.split(out.reshape(N, T, d), seq, dim=1), aux
+    out = collectives.split(out.reshape(N, T, d), rows, dim=0)
+    return collectives.split(out, seq, dim=1), aux
 
 
 def _moe_block(
@@ -258,10 +270,11 @@ def moe_decoder_lm_apply(
     ``top_k=1`` is Switch routing.  ``scan_layers``, ``remat``,
     ``attn_chunk`` and ``embed_onehot`` are as on
     :func:`~.transformer.decoder_lm_apply`.  Under context parallelism
-    ``tokens`` are this rank's positions and the aux is the rank's share
-    (module docstring)."""
+    ``tokens`` are this rank's positions and the aux is the rank's share;
+    under a batch axis they are the rank's rows, and the aux is the rank's
+    share where the ranks' losses are summed (module docstring)."""
     del scan_layers  # layout knob of the JAX package
-    x = _embed(params, tokens, embed_onehot) + _positions(params, tokens)
+    x = _inputs(params, tokens, embed_onehot)
     block = partial(
         _moe_block, n_heads=n_heads, capacity_factor=capacity_factor,
         attn_chunk=attn_chunk, router_groups=router_groups, top_k=top_k,
@@ -273,9 +286,9 @@ def moe_decoder_lm_apply(
         x, aux = block(blk, x)
         auxs.append(aux)
     x = _layernorm(params["ln_f"], x)
-    logits = x @ params["embed"].T
+    logits = _tied_head(x, params["embed"])
     if return_aux:
-        aux = torch.mean(torch.stack(auxs))
+        aux = collectives.batch_share(torch.mean(torch.stack(auxs)))
         seq = collectives.sequence_axis()
         return logits, aux if seq is None else aux / seq.size
     return logits

@@ -43,8 +43,20 @@ added; the layernormed input and each whole weight enter through
 :func:`~..parallel.collectives.copy_to_axis` before they are sliced, so
 their cotangents are summed over the axis and every rank gets the whole
 gradient.  A head count or ``d_ff`` that ``M`` does not divide keeps that
-sub-layer whole on every rank; the embeddings, ``pos`` and the head are
-always whole.
+sub-layer whole on every rank.  Of the leaves outside the blocks, those
+that the plan splits over the axis
+(:func:`~..parallel.collectives.tensor_leaf`, from the Megatron specs'
+``embed`` and ``pos`` under ``P(None, model)`` and the head's ``w`` under
+``P(None, model)``, ``b`` under ``P(model)``) are computed on the rank's
+block too: the embeddings look up the rank's ``d / M`` feature columns
+of ``embed`` and ``pos`` and gather the ``[N, T, d]`` stream over the
+axis (:func:`~..parallel.collectives.gather_from_axis`, whose backward
+keeps the rank's block of the replicated cotangent); the decoders' tied
+head contracts the rank's ``d / M`` columns of the stream with those of
+``embed`` and sums the partial logits with one ``reduce_from_axis``; a
+classifier head (the encoder's, or a decoder's untied one) computes the
+rank's ``C / M`` classes and gathers them.  The logits are whole on every
+rank.  A width that ``M`` does not divide keeps that leaf whole.
 
 ``scan_layers`` is a layout knob of the JAX package (it stacks the blocks'
 weights for one ``lax.scan``); PyTorch loops over the blocks either way, with
@@ -203,6 +215,64 @@ def _tensor_split(count: int) -> Optional[collectives.Axis]:
     return tp
 
 
+def _leaf_split(name: str, width: int) -> Optional[collectives.Axis]:
+    """The tensor axis when the plan splits the leaf ``name`` outside the
+    blocks over it (:func:`~..parallel.collectives.tensor_leaf`) and its
+    ranks share ``width`` features or classes evenly; else ``None``."""
+    tp = collectives.tensor_leaf(name)
+    if tp is None or tp.size == 1 or width % tp.size:
+        return None
+    return tp
+
+
+def _columns(w, tp):
+    """This rank's block of the last axis of the replicated ``w``, which
+    enters through :func:`~..parallel.collectives.copy_to_axis` (its
+    cotangent summed over the axis)."""
+    k = w.shape[-1] // tp.size
+    return collectives.copy_to_axis(w, tp).narrow(-1, tp.rank * k, k)
+
+
+def _inputs(params, tokens, onehot: bool):
+    """The token plus position embeddings, [N, T, d].  A leaf split over
+    the tensor axis is looked up on this rank's ``d / M`` columns, and the
+    split part of the sum is gathered over the axis (module docstring)."""
+    d = params["embed"].shape[-1]
+    tp_e, tp_p = _leaf_split("embed", d), _leaf_split("pos", d)
+    if tp_e is not None:
+        params = dict(params, embed=_columns(params["embed"], tp_e))
+    if tp_p is not None:
+        params = dict(params, pos=_columns(params["pos"], tp_p))
+    e, p = _embed(params, tokens, onehot), _positions(params, tokens)
+    if tp_e is not None and tp_p is not None:
+        return collectives.gather_from_axis(e + p, tp_e)
+    return (collectives.gather_from_axis(e, tp_e)
+            + collectives.gather_from_axis(p, tp_p))
+
+
+def _tied_head(x, embed):
+    """``x @ embed.T``, or under a tensor axis that splits ``embed`` the
+    rank's ``d / M`` columns of both contracted and the partial logits
+    summed over the axis (module docstring)."""
+    tp = _leaf_split("embed", embed.shape[-1])
+    if tp is None:
+        return x @ embed.T
+    partial_logits = _columns(x, tp) @ _columns(embed, tp).T
+    return collectives.reduce_from_axis(partial_logits, tp)
+
+
+def _head(p, x):
+    """The dense head ``x @ w + b``, or under a tensor axis that splits it
+    the rank's ``C / M`` classes, gathered over the axis (module
+    docstring)."""
+    tp = _leaf_split("head", p["w"].shape[-1])
+    if tp is None:
+        return _apply_dense(p, x)
+    x = collectives.copy_to_axis(x, tp)
+    return collectives.gather_from_axis(
+        x @ _columns(p["w"], tp) + _columns(p["b"], tp), tp)
+
+
 def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
     """Pre-LN multi-head attention with residual: [N, T, d] -> [N, T, d].
     Shared by the dense block and the MoE block (:mod:`.moe`).  Under a
@@ -320,14 +390,13 @@ def transformer_apply(
             "transformer_apply pools over the sequence; context parallelism "
             "(a split sequence axis) is for the decoders."
         )
-    T = tokens.shape[1]
-    x = _embed(params, tokens, embed_onehot) + params["pos"][:T]
+    x = _inputs(params, tokens, embed_onehot)
     x = _run_blocks(
         params["blocks"], x, n_heads, scan_layers, remat,
         attn_chunk=attn_chunk,
     )
     pooled = torch.mean(x, dim=1)
-    return _apply_dense(params["head"], pooled)
+    return _head(params["head"], pooled)
 
 
 def init_decoder_lm(
@@ -380,15 +449,15 @@ def decoder_lm_apply(
     :func:`transformer_apply`; with ``attn_chunk`` the causal mask is
     applied per block against global positions.  Under context
     parallelism ``tokens`` are this rank's positions (module docstring)."""
-    x = _embed(params, tokens, embed_onehot) + _positions(params, tokens)
+    x = _inputs(params, tokens, embed_onehot)
     x = _run_blocks(
         params["blocks"], x, n_heads, scan_layers, remat, causal=True,
         attn_chunk=attn_chunk,
     )
     x = _layernorm(params["ln_f"], x)
     if "head" in params:
-        return _apply_dense(params["head"], x)
-    return x @ params["embed"].T
+        return _head(params["head"], x)
+    return _tied_head(x, params["embed"])
 
 
 def _positions(params, tokens):

@@ -41,17 +41,23 @@ Two semantics sit side by side:
   ``x`` sharded and ``y`` replicated, ``<all_gather(x), y>`` equals the sum
   over the ranks of ``<x, split(y)>``;
 - **one replicated program** (:func:`copy_to_axis`, :func:`reduce_from_axis`,
-  Megatron's f and g): the value is one, held alike on every rank, as
-  ``shard_map``'s replicated inputs and outputs are, and every rank's
-  autograd computes its one derivative.  :func:`copy_to_axis` is the
-  identity forward and sums the ranks' cotangents backward: a replicated
-  input of which each rank uses a part (its stage's layers) gets the whole
-  gradient on every rank.  :func:`reduce_from_axis` sums the ranks' partial
-  values forward and passes the replicated cotangent through backward.
-  Each is the other's adjoint.  :func:`all_reduce_sum` in place of
+  :func:`gather_from_axis`, Megatron's f, g and gather): the value is one,
+  held alike on every rank, as ``shard_map``'s replicated inputs and
+  outputs are, and every rank's autograd computes its one derivative.
+  :func:`copy_to_axis` is the identity forward and sums the ranks'
+  cotangents backward: a replicated input of which each rank uses a part
+  (its stage's layers) gets the whole gradient on every rank.
+  :func:`reduce_from_axis` sums the ranks' partial values forward and
+  passes the replicated cotangent through backward.  Each is the other's
+  adjoint.  :func:`gather_from_axis` joins the ranks' blocks into one
+  replicated value forward and keeps the rank's block of the replicated
+  cotangent backward (a local op); its adjoint keeps a block forward and
+  gathers backward.  :func:`all_reduce_sum` in place of
   :func:`reduce_from_axis` would make every rank's autograd add every
   rank's cotangent of the replicated loss: the gradient would come out as
-  many times too large as the axis has ranks.
+  many times too large as the axis has ranks; :func:`all_gather` in place
+  of :func:`gather_from_axis` would add every rank's alike cotangent in
+  its reduce-scatter, as many times too large again.
 
 gloo takes only ``all_reduce`` and ``broadcast`` on CUDA tensors, so on
 gloo :func:`all_gather` (and so :func:`ppermute`) is an ``all_reduce`` of a
@@ -234,6 +240,60 @@ class _Ppermute(torch.autograd.Function):
         return _Ppermute.apply(x, axis, shift), in_dims[0]
 
 
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(x, axis, dim):
+        return _gather(x, axis, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        # the replicated cotangent: every rank keeps its own block
+        return _SplitToAxis.apply(g, ctx.axis, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _axis, _dim):
+        return _GatherFromAxis.apply(t, ctx.axis, ctx.dim)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, dim):
+        if in_dims[0] is None:
+            return _GatherFromAxis.apply(x, axis, dim), None
+        return _GatherFromAxis.apply(x.movedim(in_dims[0], 0), axis,
+                                     dim + 1), 0
+
+
+class _SplitToAxis(torch.autograd.Function):
+    """This rank's block of a replicated value, whose adjoint gathers the
+    blocks' cotangents (:func:`gather_from_axis`'s adjoint)."""
+
+    @staticmethod
+    def forward(x, axis, dim):
+        return _block(x, axis, dim).clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.axis, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFromAxis.apply(g, ctx.axis, ctx.dim), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _axis, _dim):
+        return _SplitToAxis.apply(t, ctx.axis, ctx.dim)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, dim):
+        if in_dims[0] is None:
+            return _SplitToAxis.apply(x, axis, dim), None
+        return _SplitToAxis.apply(x.movedim(in_dims[0], 0), axis,
+                                  dim + 1), 0
+
+
 class _CopyToAxis(torch.autograd.Function):
     @staticmethod
     def forward(x, axis):
@@ -330,6 +390,15 @@ def reduce_from_axis(x: torch.Tensor, axis: Optional[Axis]):
     return _ReduceFromAxis.apply(x, axis)
 
 
+def gather_from_axis(x: torch.Tensor, axis: Optional[Axis], dim: int = -1):
+    """The ranks' blocks of ``x`` joined along ``dim`` in rank order into
+    one replicated value, whose backward keeps this rank's block of the
+    replicated cotangent (Megatron's gather; module docstring)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherFromAxis.apply(x, axis, dim % x.dim())
+
+
 # -- the axes a step runs under ------------------------------------------
 
 
@@ -338,6 +407,8 @@ class _Axes(NamedTuple):
     sequence: Optional[Axis] = None
     expert: Optional[Axis] = None
     tensor: Optional[Axis] = None
+    batch_reduction: str = "mean"
+    tensor_leaves: frozenset = frozenset()
 
 
 _axes = _Axes()
@@ -345,11 +416,15 @@ _axes = _Axes()
 
 @contextlib.contextmanager
 def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
-         expert: Optional[Axis] = None, tensor: Optional[Axis] = None):
+         expert: Optional[Axis] = None, tensor: Optional[Axis] = None,
+         batch_reduction: str = "mean", tensor_leaves=()):
     """Run the body with these axes visible to the model's forward:
 
-    - ``batch``: the batch's rows are split over it, and batch statistics
-      (:func:`batch_mean`) are taken over every rank's rows;
+    - ``batch``: the batch's rows are split over it, batch statistics
+      (:func:`batch_mean`) are taken over every rank's rows and a MoE
+      layer routes every rank's rows (:mod:`~..models.moe`); the ranks'
+      losses are averaged over it, or summed when ``batch_reduction`` is
+      ``"sum"`` (:func:`batch_share`);
     - ``sequence``: the sequence axis of a decoder's tokens is split over
       it (context parallelism, :mod:`~..models.transformer`);
     - ``expert``: a MoE layer's experts are split over it (expert
@@ -357,9 +432,12 @@ def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
     - ``tensor``: a transformer block's heads and feed-forward columns are
       split over it, one replicated program whose sub-layers each end in a
       :func:`reduce_from_axis` (Megatron tensor parallelism,
-      :mod:`~..models.transformer`)."""
+      :mod:`~..models.transformer`); of the leaves outside the blocks,
+      those named in ``tensor_leaves`` (``"embed"``, ``"pos"``,
+      ``"head"``) are split over it too."""
     global _axes
-    saved, _axes = _axes, _Axes(batch, sequence, expert, tensor)
+    saved, _axes = _axes, _Axes(batch, sequence, expert, tensor,
+                                batch_reduction, frozenset(tensor_leaves))
     try:
         yield
     finally:
@@ -393,6 +471,23 @@ def expert_axis() -> Optional[Axis]:
 
 def tensor_axis() -> Optional[Axis]:
     return _axes.tensor
+
+
+def tensor_leaf(name: str) -> Optional[Axis]:
+    """The tensor axis when the leaf ``name`` outside the blocks is split
+    over it (:func:`axes`' ``tensor_leaves``), else ``None``."""
+    return _axes.tensor if name in _axes.tensor_leaves else None
+
+
+def batch_share(x: torch.Tensor) -> torch.Tensor:
+    """A value of the whole batch (a MoE LM's aux) as this rank's share of
+    its loss: divided by the batch axis's size when the ranks' losses are
+    summed over it, so that it counts once; as it is when they are
+    averaged."""
+    axis = _axes.batch
+    if axis is None or axis.size == 1 or _axes.batch_reduction != "sum":
+        return x
+    return x / axis.size
 
 
 def batch_mean(x: torch.Tensor, dims) -> torch.Tensor:

@@ -39,22 +39,23 @@ Only ``all_reduce`` and ``broadcast`` are used: gloo, which lets several
 ranks share one card, takes CUDA tensors for these two only.
 
 A model whose forward couples the rows of a batch, such as ResNet-18's
-BatchNorm with batch statistics, is where the two families of builders
-differ, as they do in the JAX package:
+BatchNorm with batch statistics or the MoE LM's routing, is where the two
+families of builders differ, as they do in the JAX package:
 
 - the GSPMD names (:func:`make_dp_hf_step`, :func:`make_dp_hf_train_loop`,
   :func:`make_dp_hf_acc_step`, and ``HessianFree(mesh=)`` over them) run
   the forward with the data axis as its batch axis
   (:func:`~.collectives.axes`): ``models.resnet.batchnorm`` takes the mean
   and the mean of squared deviations over every rank's rows with
-  :func:`~.collectives.all_reduce_sum` inside the transforms, so the step
-  is the whole batch's step, as GSPMD's is.  Per-sample gradients
+  :func:`~.collectives.all_reduce_sum` inside the transforms, and
+  ``models.moe`` routes every rank's rows together, so the step is the
+  whole batch's step, as GSPMD's is.  Per-sample gradients
   (``dp_diag_EF``, the EMA diagonals) see each sample alone, as in the JAX
   package;
 - the ``shard_map`` names (:func:`make_dp_hf_step_shardmap`,
   :func:`make_dp_hf_acc_step_shardmap`) set no batch axis: each rank
-  normalizes its shard by the shard's statistics, as JAX's ``shard_map``
-  step does, and the step is one process's accumulated step over the
+  normalizes its shard by the shard's statistics and routes its own
+  rows, as JAX's ``shard_map`` step does, and the step is one process's accumulated step over the
   shards as chunks.
 
 For a model whose rows do not couple, both families are one mechanism and
@@ -191,15 +192,16 @@ def make_dp_hf_step(
                     reduction, batch_stats=True)
 
 
-def _synced(fn, mesh, axis_name: str, batch_stats: bool):
-    """``fn`` run with the data axis as the forward's batch axis when
-    ``batch_stats`` (the GSPMD names), as it is otherwise."""
+def _synced(fn, mesh, axis_name: str, batch_stats: bool, reduction: str):
+    """``fn`` run with the data axis as the forward's batch axis, over
+    which the ranks' losses combine by ``reduction``, when ``batch_stats``
+    (the GSPMD names); as it is otherwise."""
     if not batch_stats:
         return fn
     axis = collectives.mesh_axis(mesh, axis_name)
 
     def synced(*args, **kwargs):
-        with collectives.axes(batch=axis):
+        with collectives.axes(batch=axis, batch_reduction=reduction):
             return fn(*args, **kwargs)
 
     return synced
@@ -217,7 +219,7 @@ def _dp_step(fns, config, ravel, mesh, axis_name, precond_exponent,
             precond_exponent=precond_exponent, reduce=reduce,
         )
 
-    return _synced(step, mesh, axis_name, batch_stats)
+    return _synced(step, mesh, axis_name, batch_stats, reduction)
 
 
 def make_dp_hf_step_shardmap(
@@ -254,7 +256,7 @@ def make_dp_hf_train_loop(
     return _synced(
         _train_loop(fns, config, ravel, precond_exponent, precond_ema_decay,
                     _Reduce(mesh, axis_name, reduction)),
-        mesh, axis_name, batch_stats=True)
+        mesh, axis_name, batch_stats=True, reduction=reduction)
 
 
 def make_dp_hf_acc_step(
@@ -298,7 +300,7 @@ def _dp_acc_step(fns, config, ravel, mesh, axis_name, reduction,
             reduce=reduce,
         )
 
-    return _synced(step, mesh, axis_name, batch_stats)
+    return _synced(step, mesh, axis_name, batch_stats, reduction)
 
 
 def make_dp_hf_acc_step_shardmap(

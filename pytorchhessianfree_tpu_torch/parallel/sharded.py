@@ -44,11 +44,18 @@ port states what GSPMD chose freely:
   takes.  The loss stays whole and alike on every rank, as GSPMD's
   partitioned forward gives it.  The specs decide, not the leaf names
   alone: a tree in which some block lacks the layout is computed
-  gathered.
-  Still gathered and computed whole on every rank: the embeddings,
-  ``pos`` and the head (a vocab-parallel head is not ported); a sub-layer
-  whose head count or ``d_ff`` the axis does not divide; stacked blocks
-  (:func:`~..models.transformer.stack_blocks`, the pipeline's layout).
+  gathered.  Beside such blocks, the spec decides leaf by leaf for the
+  embeddings and the head: ``embed`` and ``pos`` under ``P(None, model)``
+  are looked up on the rank's ``d / M`` feature columns (and the tied
+  head contracts those columns, with one sum of the partial logits), a
+  head whose ``w`` is under ``P(None, model)`` and ``b`` under
+  ``P(model)`` computes the rank's ``C / M`` classes; the stream and the
+  classes are gathered over the axis into whole values
+  (:mod:`~..models.transformer`).  A leaf under ``P()`` is computed whole.
+  Still gathered and computed whole on every rank: a sub-layer or leaf
+  whose head count, ``d_ff``, ``d`` or class count the axis does not
+  divide; stacked blocks (:func:`~..models.transformer.stack_blocks`, the
+  pipeline's layout).
 - **Context and expert parallelism.**  Under ``batch_specs`` that split
   the sequence axis of the tokens over the model axis (context
   parallelism, CP), the decoders' attention gathers keys and values over
@@ -80,14 +87,8 @@ port states what GSPMD chose freely:
   weights are still kept as blocks between steps.
 - **The data axis** reduces as in :mod:`.data_parallel` when a batch leaf
   is split over it, and the forward takes batch statistics over it
-  (``models.resnet.batchnorm``), as GSPMD does.
-  **Not the whole program (fault F5):** with the rows split over the
-  data axis (the default ``P("data")``), the MoE LM routes each rank's
-  rows alone, where GSPMD routes all of a router group's rows, so its
-  capacity, slot order and dropped choices are the rank's, and the step
-  returns other values than the JAX package's without an error.  Until
-  this is repaired, replicate the MoE LM's rows (``batch_specs=P()``) or
-  split its sequence alone (``P(None, "model")``).
+  (``models.resnet.batchnorm``) and routes the MoE LM's tokens over every
+  rank's rows (``models.moe``), as GSPMD does.
 
 Every branch on the host reads a reduced or replicated value, so the
 replicas along both axes stay bitwise equal.  Trajectories equal the
@@ -299,6 +300,21 @@ def _megatron(specs, params, model_axis: str) -> bool:
     return True
 
 
+def _megatron_leaves(specs, params, model_axis: str) -> frozenset:
+    """The leaves outside the blocks that the Megatron layout splits over
+    the model axis (tests/test_sharded.py:316-331): ``embed`` and ``pos``
+    under ``P(None, model)``, and ``head`` when its ``w`` is under
+    ``P(None, model)`` and its ``b`` under ``P(model)``."""
+    col = (None, model_axis)
+    leaves = {name for name in ("embed", "pos")
+              if name in params and tuple(specs[name] or ()) == col}
+    head = specs.get("head")
+    if isinstance(head, dict) and tuple(head.get("w") or ()) == col \
+            and tuple(head.get("b") or ()) == (model_axis,):
+        leaves.add("head")
+    return frozenset(leaves)
+
+
 def _splits_experts(specs, model_axis: str) -> bool:
     """Whether an :class:`~.mesh.ExpertSpec` of the spec tree splits its
     experts over the model axis (:func:`~..models.moe.moe_param_specs`)."""
@@ -412,6 +428,9 @@ class _Plan:
             self.experts = _splits_experts(self._specs, self.model_axis)
             self.megatron = self.model.size > 1 and _megatron(
                 self._specs, params, self.model_axis)
+            self.megatron_leaves = _megatron_leaves(
+                self._specs, params, self.model_axis) \
+                if self.megatron else frozenset()
         return self._specs
 
     def whole_params(self, params):
@@ -458,13 +477,16 @@ class _Plan:
         if data is not None or model is not None:
             reduce = _AxesReduce(data, model, "sum" if context else "mean",
                                  self.shard)
+        # beside CP or EP the Megatron blocks are computed gathered
+        tensor = self.megatron and not joined
         axes = dict(
             batch=collectives.mesh_axis(self.mesh, self.data_axis)
             if data_split else None,
             sequence=self.model if context else None,
             expert=self.model if self.experts else None,
-            # beside CP or EP the Megatron blocks are computed gathered
-            tensor=self.model if self.megatron and not joined else None,
+            tensor=self.model if tensor else None,
+            batch_reduction=self.reduction,
+            tensor_leaves=self.megatron_leaves if tensor else frozenset(),
         )
         local = _place_batch(self.mesh, batch, self.batch_specs,
                              self.default_s, self.stacked)

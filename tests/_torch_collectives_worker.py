@@ -73,6 +73,40 @@ def joined_gather(xs):
     return xs.reshape(-1).expand(xs.shape[0], -1)
 
 
+def replicated(world):
+    """The replicated program's point, tangents and cotangents: one value
+    of ``world * N`` entries, alike on every rank."""
+    g = np.random.default_rng(7)
+    t = lambda *s: torch.tensor(g.standard_normal(s))  # noqa: E731
+    return {"z": t(world * N), "t": t(world * N), "u": t(world * N),
+            "tb": t(3, world * N)}
+
+
+def cube(z, axis):
+    """One replicated program, Megatron's way: each rank cubes its block
+    of the replicated ``z`` and :func:`C.gather_from_axis` joins the
+    blocks into ``z ** 3``, alike on every rank."""
+    k = z.shape[-1] // axis.size
+    block = C.copy_to_axis(z, axis).narrow(-1, axis.rank * k, k)
+    return C.gather_from_axis(block ** 3, axis)
+
+
+def replicated_expected(world):
+    """What every rank's replicated-program checks must give: the
+    derivatives of ``z ** 3`` in one process, the same on every rank."""
+    d = replicated(world)
+    z, t, u = d["z"], d["t"], d["u"]
+    f = lambda y: y ** 3  # noqa: E731
+    out = {"rep": f(z), "rep_jvp": jvp(f, (z,), (t,))[1],
+           "rep_vjp": vjp(f, z)[1](u)[0],
+           "rep_vmap_jvp": vmap(lambda s: jvp(f, (z,), (s,))[1])(d["tb"])}
+    out["rep_vjp_of_jvp"] = vjp(
+        lambda y: torch.dot(u, jvp(f, (y,), (t,))[1]), z)[1](
+            torch.ones((), dtype=z.dtype))[0]
+    out["rep_hvp_linearized"] = out["rep_vjp_of_jvp"]
+    return {k: v.expand(world, *v.shape).numpy() for k, v in out.items()}
+
+
 def expected(world):
     """What every rank's :func:`run` must give, from the joined program in
     one process: ``{key: [world, ...]}``."""
@@ -108,7 +142,8 @@ def expected(world):
     out["gather_jvp"] = joined_gather(J["t"])
     out["gather_vjp"] = vjp(joined_gather, xs)[1](J["ug"])[0]
     out["gather_vmap"] = tb.reshape(3, -1).expand(world, -1, -1)
-    return {k: v.numpy() for k, v in out.items()}
+    return dict({k: v.numpy() for k, v in out.items()},
+                **replicated_expected(world))
 
 
 def run(rank, world):
@@ -146,6 +181,22 @@ def run(rank, world):
     out["pair_gather"] = torch.dot(gth(x), y)
     out["pair_split"] = C.all_reduce_sum(
         torch.dot(x, C.split(y, axis)), axis)
+
+    rep = replicated(world)
+    z, tr, ur = rep["z"], rep["t"], rep["u"]
+    c = lambda y: cube(y, axis)  # noqa: E731
+    out["rep"] = c(z)
+    out["rep_jvp"] = jvp(c, (z,), (tr,))[1]
+    out["rep_vjp"] = vjp(c, z)[1](ur)[0]
+    out["rep_vmap_jvp"] = vmap(lambda s: jvp(c, (z,), (s,))[1])(rep["tb"])
+    # the vjp of the jvp runs the gather's adjoint's adjoint; the
+    # linearized gradient of <u, cube(z)> replays it
+    out["rep_vjp_of_jvp"] = vjp(
+        lambda y: torch.dot(ur, jvp(c, (y,), (tr,))[1]), z)[1](
+            torch.ones((), dtype=z.dtype))[0]
+    _, lin_rep = linearize(
+        lambda y: vjp(c, y)[1](ur)[0], z)
+    out["rep_hvp_linearized"] = lin_rep(tr)
     return {k: val.detach().cpu().numpy() for k, val in out.items()}
 
 
@@ -155,6 +206,9 @@ def _direct():
     C.all_gather = lambda x, axis, dim=0: C._AllGather.apply(
         x, axis, dim % x.dim())
     C.split = lambda x, axis, dim=0: C._block(x, axis, dim % x.dim())
+    C.copy_to_axis = lambda x, axis: C._CopyToAxis.apply(x, axis)
+    C.gather_from_axis = lambda x, axis, dim=-1: C._GatherFromAxis.apply(
+        x, axis, dim % x.dim())
 
 
 def main():

@@ -68,7 +68,7 @@ TOLS = {
     "wrap_cp": (1e-7, 1e-7), "wrap_tp": (2e-6, 1e-5),
     "loop_cp_ema": (1e-7,), "moe_cp": (1e-8, 1e-6), "moe_cp_ep": (1e-8, 1e-6),
     "ep_diag": (1e-8,), "mega_cp": (1e-8,), "mega_ep": (1e-8,),
-    "mega_ep_rows": (1e-8,),
+    "ep_rows": (1e-8,), "mega_ep_rows": (1e-8,),
     "loop_tp_ema": (2e-6,),
 }
 
@@ -135,7 +135,7 @@ def draw(case):
     if case == "wrap_cp":
         return j_init_decoder(**_lm(6, 2)), [_tokens(91 + i)
                                              for i in range(2)]
-    if case in ("ep", "ep_diag", "mega_ep", "mega_ep_rows"):
+    if case in ("ep", "ep_diag", "mega_ep", "ep_rows", "mega_ep_rows"):
         steps = worker.CASES[case]["steps"]
         return (j_init_moe(n_experts=4, **_lm(4, 2)),
                 [_tokens(200 + i) for i in range(steps)])
@@ -185,11 +185,12 @@ def j_model(kind):
             model_fn=lambda p, t: j_decoder(p, t, n_heads=4,
                                             embed_onehot=onehot),
             loss_outer=lambda o, t: j_next_token(o, t, onehot=onehot))
-    elif kind == "moe_aux":
+    elif kind in ("moe_aux", "moe_aux_sum"):
+        rows = kind == "moe_aux_sum"
         fns = jhf.HFModelFns(
             model_fn=lambda p, t: j_moe(p, t, n_heads=4, return_aux=True),
-            loss_outer=lambda o, t: j_next_token(o[0], t)
-            + worker.AUX_WEIGHT * o[1])
+            loss_outer=lambda o, t: (t.shape[0] if rows else 1)
+            * j_next_token(o[0], t) + worker.AUX_WEIGHT * o[1])
     else:
         fns = jhf.HFModelFns(model_fn=lambda p, t: j_moe(p, t, n_heads=4),
                              loss_outer=j_next_token)
@@ -331,7 +332,7 @@ def _port_run(case, params, batches):
             out[name] = np.array([float(getattr(s, name)) for s in ss])
         if spec.get("rich"):
             out["m_hist"] = stats.detail.m_hist.numpy()
-        if spec["model"] == "moe_aux":
+        if spec["model"].startswith("moe"):
             out["dropped"] = dropped_choices(tparams, batches[0][0])
     elif builder == "acc":
         p, _, stats = thf.hf_acc_step(

@@ -81,9 +81,9 @@ MEGATRON = {
     ],
 }
 TINY_LM = dict(vocab=12, d_model=16, d_ff=32, max_len=8)
-# the Megatron blocks of the decoder LM (embeddings split by feature and
-# gathered, the head tied) and Megatron attention beside the MoE LM's
-# expert specs
+# the Megatron blocks of the decoder LM (embeddings split by feature, the
+# head tied to them) and Megatron attention beside the MoE LM's expert
+# specs
 MEGATRON_DEC = {"embed": P(None, "model"), "pos": P(None, "model"),
                 "ln_f": P(), "blocks": MEGATRON["blocks"]}
 MEGATRON_MOE = moe_param_specs(2)
@@ -135,13 +135,20 @@ CASES = {
                     batch_specs=P(), diag_ef=True, jax_world=4),
     "mega_cp": dict(model="dec", steps=1, batch_specs=P(None, "model"),
                     param_specs=MEGATRON_DEC),
-    # the rows replicated over the data axis: split over it, each rank
-    # would route its rows alone where GSPMD routes them all (fault F5)
-    "mega_ep": dict(model="moe", steps=1, param_specs=MEGATRON_MOE,
-                    batch_specs=P()),
-    # F5 itself, pinned by an expected failure: the rows split
-    "mega_ep_rows": dict(model="moe", steps=1, param_specs=MEGATRON_MOE,
-                         same_jax="mega_ep"),
+    # the MoE LM's loss adds the aux, and the step preconditions with the
+    # in-step empirical-Fisher diagonal; the JAX side replicates the rows
+    # (its partitioner aborts on the diagonal otherwise, ep_diag's note),
+    # which GSPMD computes as the same whole program
+    "mega_ep": dict(model="moe_aux", steps=1, param_specs=MEGATRON_MOE,
+                    batch_specs=P(), diag_ef=True),
+    # fault F5: the rows split over the data axis are routed together.
+    # EP alone, the per-sample diagonals routing each sample alone
+    "ep_rows": dict(model="moe_aux", steps=1, param_specs=moe_param_specs(2),
+                    diag_ef=True, same_jax="mega_ep"),
+    # Megatron attention + EP with a summed loss: the aux is each rank's
+    # share of it
+    "mega_ep_rows": dict(model="moe_aux_sum", steps=1,
+                         param_specs=MEGATRON_MOE, reduction="sum"),
     "loop_tp_ema": dict(model="enc", steps=1, builder="loop",
                         param_specs=MEGATRON, ema=0.9),
 }
@@ -183,15 +190,18 @@ def model(kind):
                                                                 n_heads=4),
                     loss_outer=next_token_loss),
                 thf.HFConfig(damping=1.0, cg_max_iter=25))
-    if kind == "moe_aux":  # the loss adds the Switch aux, as the example
+    if kind in ("moe_aux", "moe_aux_sum"):
+        # the loss adds the Switch aux, as the example; summed over the
+        # rows (each row's mean), at the damping scaled by the row count
+        rows = kind == "moe_aux_sum"
         return (init_moe_decoder_lm(g, n_layers=2, n_experts=4, dtype=f64,
                                     **TINY_LM),
                 thf.HFModelFns(
                     model_fn=lambda p, t: moe_decoder_lm_apply(
                         p, t, n_heads=4, return_aux=True),
-                    loss_outer=lambda o, t: next_token_loss(o[0], t)
-                    + AUX_WEIGHT * o[1]),
-                thf.HFConfig(damping=1.0, cg_max_iter=25))
+                    loss_outer=lambda o, t: (t.shape[0] if rows else 1)
+                    * next_token_loss(o[0], t) + AUX_WEIGHT * o[1]),
+                thf.HFConfig(damping=4.0 if rows else 1.0, cg_max_iter=25))
     raise ValueError(kind)
 
 
@@ -257,7 +267,9 @@ def run_case(case, z, meshes, out):
     builder = spec.get("builder", "step")
     state = thf.init_state(ravel, config)
     if builder == "step":
-        step = sharded.make_sharded_hf_step(fns, config, ravel, mesh, **kw)
+        step = sharded.make_sharded_hf_step(
+            fns, config, ravel, mesh,
+            reduction=spec.get("reduction", "mean"), **kw)
         diag = None
         if spec.get("precond"):
             diag = thf.diag_EF(mlp_apply, mse_loss, params, *batches[0],
@@ -390,19 +402,57 @@ def placement(meshes, out):
 # -- Megatron tensor parallelism: what each rank computes -----------------
 
 _tp_sums = [0]
+_tp_gathers = [0]
 
 
 def _count_tp_sums():
     """Count the forward's sums over a tensor axis (each partitioned
-    sub-layer calls ``collectives.reduce_from_axis`` once per forward)."""
-    reduce = collectives.reduce_from_axis
+    sub-layer and a split tied head call ``collectives.reduce_from_axis``
+    once per forward) and its gathers (a split embedding and a split
+    classifier head call ``collectives.gather_from_axis`` once each)."""
+    reduce, gather = collectives.reduce_from_axis, \
+        collectives.gather_from_axis
 
     def counted(x, axis):
         if collectives.tensor_axis() is not None:
             _tp_sums[0] += 1
         return reduce(x, axis)
 
+    def counted_gather(x, axis, dim=-1):
+        if axis is not None and collectives.tensor_axis() is not None:
+            _tp_gathers[0] += 1
+        return gather(x, axis, dim)
+
     collectives.reduce_from_axis = counted
+    collectives.gather_from_axis = counted_gather
+
+
+def megatron_specs(params):
+    """tests/test_sharded.py:316-331's Megatron spec tree for any tree of
+    the transformer family: ``embed`` and ``pos`` by feature column, a
+    head's ``w`` by column and ``b`` by row, each block's ``qkv`` and
+    ``ff1`` by column and ``proj`` and ``ff2`` by row, the rest
+    replicated."""
+    split = {"qkv": {"w": COL, "b": P("model")},
+             "ff1": {"w": COL, "b": P("model")},
+             "proj": {"w": ROW, "b": P()}, "ff2": {"w": ROW, "b": P()}}
+    return {key: [{name: split.get(name, P()) for name in blk}
+                  for blk in leaf] if key == "blocks"
+            else {"w": COL, "b": P("model")} if key == "head"
+            else COL if key in ("embed", "pos") else P()
+            for key, leaf in params.items()}
+
+
+def megatron_axes(params, mesh, batch, specs=None):
+    """The forward's axes that the sharded step's plan picks for ``specs``
+    (:func:`megatron_specs` by default) with the rows replicated: the
+    model axis as the tensor axis, with the embeddings and the head it
+    splits."""
+    plan = sharded._Plan(thf.HFConfig(), thf.TrainableRavel(
+        params, pad_to_multiple=8), mesh, "data", "model",
+        specs or megatron_specs(params), P(), "mean", stacked=False)
+    plan.whole_params(params)
+    return plan.place(batch)[1]
 
 
 def tiny_megatron_model(kind, dtype=torch.float64, device="cpu"):
@@ -447,12 +497,12 @@ def tiny_megatron_model(kind, dtype=torch.float64, device="cpu"):
     return params, fns, (x.to(device), y.to(device)), bool(kw.get("remat"))
 
 
-def megatron_values(fns, params, batch, curvature, remat, axis, v):
-    """Loss, flat gradient and one curvature matvec (GGN or Hessian) with
-    the forward's tensor axis ``axis`` (``None``: one process's)."""
+def megatron_values(fns, params, batch, curvature, remat, axes, v):
+    """Loss, flat gradient and one curvature matvec (GGN or Hessian) under
+    the forward's ``axes`` (``{}``: one process's)."""
     ravel = thf.TrainableRavel(params, pad_to_multiple=8)
     config = thf.HFConfig(damping=1.0, curvature_opt=curvature, remat=remat)
-    with collectives.axes(tensor=axis):
+    with collectives.axes(**axes):
         loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
             fns, config, ravel, params, batch)
         return [loss.reshape(1), grad, mvp(v)]
@@ -482,6 +532,7 @@ def megatron_derivatives(mesh, out):
     checks = []
     for kind in MEGATRON_GROUPS[mesh.get_local_rank("data")]:
         params, fns, batch, remat = tiny_megatron_model(kind)
+        axes = megatron_axes(params, mesh, batch)
         v = torch.randn(thf.TrainableRavel(params, pad_to_multiple=8).dim,
                         dtype=torch.float64,
                         generator=torch.Generator().manual_seed(3))
@@ -489,14 +540,15 @@ def megatron_derivatives(mesh, out):
             key = f"mega/{kind}/{curvature}"
             args = (fns, params, batch, curvature, remat)
             checks.append((key, args, v))
-            _tp_sums[0] = 0
-            got = megatron_values(*args, axis, v)
+            _tp_sums[0] = _tp_gathers[0] = 0
+            got = megatron_values(*args, axes, v)
             out[f"{key}/sums"] = np.array(_tp_sums[0])
+            out[f"{key}/gathers"] = np.array(_tp_gathers[0])
             for name, value in zip(("loss", "grad", "mvp"), got):
                 out[f"{key}/{name}"] = value.numpy()
     for key, args, v in checks[axis.rank::axis.size]:
         for name, value in zip(("loss", "grad", "mvp"),
-                               megatron_values(*args, None, v)):
+                               megatron_values(*args, {}, v)):
             out[f"{key}/{name}_one"] = value.numpy()
 
 
@@ -517,29 +569,48 @@ class _Shapes(TorchDispatchMode):
 
 def megatron_split(mesh, out):
     """What one rank computes under the tensor axis against one process:
-    the FLOPs of a block and of the encoder's forward
-    (``FlopCounterMode``), and the output shapes of the block's ops."""
+    the FLOPs of a block and of the encoder's and the decoder LM's
+    forwards under the plan's axes (``FlopCounterMode``; the decoder LM
+    also with its embeddings under ``P()``, which the plan keeps whole),
+    and the output shapes of the block's ops."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from pytorchhessianfree_tpu_torch.models.transformer import _block
 
     axis = collectives.mesh_axis(mesh, "model")
-    params, fns, (x, _), _ = tiny_megatron_model("enc")
+    params, fns, batch, _ = tiny_megatron_model("enc")
+    dec, dec_fns, dec_batch, _ = tiny_megatron_model("dec")
     h = torch.randn(16, 8, 16, dtype=torch.float64,
                     generator=torch.Generator().manual_seed(5))
     blk = params["blocks"][0]
-    for name, ax in (("tp", axis), ("one", None)):
-        with collectives.axes(tensor=ax):
+    whole_embed = dict(megatron_specs(dec), embed=P(), pos=P())
+    plans = {"tp": (megatron_axes(params, mesh, batch),
+                    megatron_axes(dec, mesh, dec_batch),
+                    megatron_axes(dec, mesh, dec_batch, whole_embed)),
+             "one": ({}, {}, {})}
+    for name, (axes, dec_axes, whole_axes) in plans.items():
+        with collectives.axes(tensor=axes.get("tensor")):
             with FlopCounterMode(display=False) as block_flops:
                 _block(blk, h, n_heads=4)
-            with FlopCounterMode(display=False) as forward_flops:
-                fns.model_fn(params, x)
             with _Shapes() as shapes:
                 _block(blk, h, n_heads=4)
+        with collectives.axes(**axes), \
+                FlopCounterMode(display=False) as forward_flops:
+            fns.model_fn(params, batch[0])
+        with collectives.axes(**dec_axes), \
+                FlopCounterMode(display=False) as dec_flops:
+            dec_fns.model_fn(dec, dec_batch[0])
+        with collectives.axes(**whole_axes), \
+                FlopCounterMode(display=False) as whole_flops:
+            dec_fns.model_fn(dec, dec_batch[0])
         out[f"split/{name}/block_flops"] = np.array(
             block_flops.get_total_flops())
         out[f"split/{name}/forward_flops"] = np.array(
             forward_flops.get_total_flops())
+        out[f"split/{name}/dec_forward_flops"] = np.array(
+            dec_flops.get_total_flops())
+        out[f"split/{name}/dec_whole_embed_flops"] = np.array(
+            whole_flops.get_total_flops())
         out[f"split/{name}/shapes"] = np.array(sorted(shapes.seen))
 
 
@@ -547,13 +618,13 @@ def megatron_on_device(mesh, out):
     """The encoder's forward and GGN matvec of the partitioned forward and
     of one process's in f32 on the rank's device."""
     device = rank_device()
-    axis = collectives.mesh_axis(mesh, "model")
     params, fns, batch, _ = tiny_megatron_model("enc", torch.float32,
                                                 device)
     n = thf.TrainableRavel(params, pad_to_multiple=8).dim
     v = torch.randn(n, generator=torch.Generator().manual_seed(3)).to(device)
-    for name, ax in (("tp", axis), ("one", None)):
-        with collectives.axes(tensor=ax):
+    for name, ax in (("tp", megatron_axes(params, mesh, batch)),
+                     ("one", {})):
+        with collectives.axes(**ax):
             logits = fns.model_fn(params, batch[0])
         _, _, mv = megatron_values(fns, params, batch, "ggn", False, ax, v)
         out[f"card/{name}/logits"] = logits.cpu().numpy()
@@ -608,7 +679,7 @@ def main():
     _count_tp_sums()
     out = {}
     for case in cases.split(","):
-        _tp_sums[0] = 0
+        _tp_sums[0] = _tp_gathers[0] = 0
         if case == "validation":
             validation(meshes, out)
         elif case == "placement":
@@ -618,6 +689,7 @@ def main():
         else:
             run_case(case, z, meshes, out)
             out[f"{case}/tp_sums"] = np.array(_tp_sums[0])
+            out[f"{case}/tp_gathers"] = np.array(_tp_gathers[0])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
     print(f"rank {rank}/{world} [{cases}]: ok")

@@ -16,7 +16,13 @@ own inputs (``_torch_collectives_worker.expected``), for:
 - ``vmap`` of a jvp;
 - ``all_gather`` (value, jvp, vjp as a reduce-scatter, vmap) and
   ``split`` as its adjoint across the sharded and replicated inner
-  products.
+  products;
+- ``gather_from_axis`` in one replicated program (each rank cubes its
+  block of a replicated value and gathers the blocks): value, jvp, vjp,
+  vmap of a jvp, the vjp of a jvp and a linearized Hessian-vector product
+  equal one process's derivatives of ``z ** 3`` on every rank, so its
+  backward keeps the rank's block where ``all_gather``'s would sum the
+  ranks' alike cotangents.
 
 tests/test_torch_cuda.py runs the same checks on the card.
 """
@@ -78,6 +84,11 @@ def test_all_gather_and_split_are_adjoint(ranks):
     check(ranks, ("gather", "gather_jvp", "gather_vjp", "gather_vmap"))
     for r in ranks[0]:
         np.testing.assert_allclose(r["pair_gather"], r["pair_split"], **TOL)
+
+
+def test_replicated_gather_keeps_the_rank_block_backward(ranks):
+    check(ranks, ("rep", "rep_jvp", "rep_vjp", "rep_vmap_jvp",
+                  "rep_vjp_of_jvp", "rep_hvp_linearized"))
 
 
 def test_one_rank_calls_the_functions_alike(tmp_path):

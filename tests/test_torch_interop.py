@@ -147,8 +147,15 @@ def test_narrow_allcnnc_module_matches_jax_allcnnc_apply():
     jfns = jhf.HFModelFns(model_fn=jm.allcnnc_apply,
                           loss_outer=jm.cross_entropy_loss,
                           loss_reg=jm.l2_regularizer)
-    j_loss, j_grad, j_mvp = j_build(jfns, jhf.HFConfig(), jr, jparams,
-                                    (jnp.asarray(x), jnp.asarray(y)))
+    v = rng.standard_normal(jr.dim)
+
+    @jax.jit  # one compile: op by op the conv build takes far longer
+    def j_values(params, x, y, v):
+        loss, grad, mvp = j_build(jfns, jhf.HFConfig(), jr, params, (x, y))
+        return loss, grad, mvp(v)
+
+    j_loss, j_grad, j_mv = j_values(jparams, jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(v))
     tr = thf.TrainableRavel(params)
     tfns = module_fns(net, tm.cross_entropy_loss, loss_reg=_l2_module)
     batch = (torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
@@ -160,10 +167,8 @@ def test_narrow_allcnnc_module_matches_jax_allcnnc_apply():
 
     np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-9)
     assert_vec_close(jax_vec(t_grad), np.asarray(j_grad), 1e-9)
-    v = rng.standard_normal(jr.dim)
     t_v = tr.ravel(_to_module(jr.unravel(jnp.asarray(v)), names))
-    assert_vec_close(jax_vec(t_mvp(t_v)), np.asarray(j_mvp(jnp.asarray(v))),
-                     1e-9)
+    assert_vec_close(jax_vec(t_mvp(t_v)), np.asarray(j_mv), 1e-9)
 
 
 def _bn_net():

@@ -305,18 +305,26 @@ def test_narrow_resnet_sketch_matches_jax_on_the_same_probes():
     tr = thf.TrainableRavel(tparams, pad_to_multiple=1024)
     probes = np.pad(_probes(8, tr.unpadded_dim, 3),
                     ((0, 0), (0, tr.dim - tr.unpadded_dim)))
-    j_mvp = j_build(jhf.HFModelFns(jm.resnet18_apply, jm.cross_entropy_loss),
-                    jhf.HFConfig(), jr, jparams,
-                    (jnp.asarray(x), jnp.asarray(y)))[2]
+    v = rng.standard_normal(tr.dim)
+
+    # one compile of the JAX side: op by op, its linearize and the vmap of
+    # the conv matvec take ~5x as long on the CPU
+    @jax.jit
+    def j_sketch(params, x, y, probes, v):
+        j_mvp = j_build(
+            jhf.HFModelFns(jm.resnet18_apply, jm.cross_entropy_loss),
+            jhf.HFConfig(), jr, params, (x, y))[2]
+        js = jhf.nystrom_sketch(j_mvp, probes)
+        return js.eigs, jhf.nystrom_to_preconditioner(js, 0.5)(v)
+
+    j_eigs, j_Mv = j_sketch(jparams, jnp.asarray(x), jnp.asarray(y),
+                            jnp.asarray(probes), jnp.asarray(v))
     t_mvp = t_build(thf.HFModelFns(tm.resnet18_apply, tm.cross_entropy_loss),
                     thf.HFConfig(), tr, tparams,
                     (torch.tensor(x), torch.tensor(y)))[2]
-    js = jhf.nystrom_sketch(j_mvp, jnp.asarray(probes))
     ts = thf.nystrom_sketch(t_mvp, torch.tensor(probes))
-    np.testing.assert_allclose(ts.eigs.numpy(), np.asarray(js.eigs),
+    np.testing.assert_allclose(ts.eigs.numpy(), np.asarray(j_eigs),
                                rtol=1e-9)
-    v = rng.standard_normal(tr.dim)
-    jM = jhf.nystrom_to_preconditioner(js, 0.5)
     tM = thf.nystrom_to_preconditioner(ts, 0.5)
     np.testing.assert_allclose(tM(torch.tensor(v)).numpy(),
-                               np.asarray(jM(jnp.asarray(v))), rtol=1e-9)
+                               np.asarray(j_Mv), rtol=1e-9)

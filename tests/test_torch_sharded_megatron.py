@@ -11,21 +11,34 @@ M`` feed-forward columns, with one sum over the axis per sub-layer
   tests/test_torch_sharded_tp.py, which tests/_torch_sharded_parity.py
   explains), the same CG iterations, the four ranks bit for bit;
 - loss, gradient, GGN and Hessian matvecs of the partitioned forward
-  within 1e-10 of one process's: the encoder, the causal decoder LM with
-  full and chunked attention, rematerialized blocks (the one-shot
-  matvecs) and the MoE LM's attention; a head count the axis does not
-  divide computes that sub-layer whole and gives the same values;
+  under the axes the step's plan picks for the Megatron specs (the
+  blocks, and the embeddings, ``pos`` and the head split by feature or
+  class) within 1e-10 of one process's: the encoder, the causal decoder
+  LM with full and chunked attention, rematerialized blocks (the
+  one-shot matvecs) and the MoE LM's attention; a head count the axis
+  does not divide computes that sub-layer whole and gives the same
+  values;
 - what is split: a block's matmul FLOPs on a rank are half of one
-  process's (``FlopCounterMode``), and its activations hold half the
-  heads and half the feed-forward columns;
+  process's (``FlopCounterMode``), and so are the whole encoder's and
+  the decoder LM's (its tied head contracting half the features), but
+  for the tied head when the specs put ``embed`` and ``pos`` under
+  ``P()``; a block's activations hold half the heads and half the
+  feed-forward columns;
 - where Megatron blocks meet the model axis's other roles, the blocks are
   computed gathered and the other role stays partitioned: ``mega_cp`` (the
   decoder LM's Megatron specs with ``batch_specs=P(None, "model")``) and
-  ``mega_ep`` (Megatron attention beside the MoE LM's expert specs), 1
-  step each at 1e-8 against the JAX package's step and the port's
-  one-process step, with no sum over the tensor axis; ``mega_ep`` with
-  the rows split over the data axis is an expected failure (fault F5:
-  each rank routes its rows alone);
+  ``mega_ep`` (Megatron attention beside the MoE LM's expert specs, the
+  loss adding the aux, the in-step empirical-Fisher diagonal), 1 step
+  each at 1e-8 against the JAX package's step and the port's one-process
+  step, with no sum over the tensor axis;
+- the MoE LM with its rows split over the data axis (fault F5, repaired:
+  the feed-forward routes every rank's rows together, as GSPMD does):
+  ``ep_rows`` (EP, the loss adding the aux, the per-sample diagonals
+  routing each sample alone) and ``mega_ep_rows`` (Megatron attention +
+  EP with a loss summed over the rows, ``reduction="sum"``: the aux is
+  each rank's share), 1 step each at 1e-8 against the JAX package's
+  whole program and the port's one process; the draw drops choices by
+  capacity;
 - ``loop_tp_ema``: the Megatron encoder's train loop with the EMA
   empirical-Fisher diagonal (0.9), 1 step at ``tp``'s first bound 2e-6,
   the diagonal at 1e-10, the blocks partitioned.
@@ -50,7 +63,7 @@ WHOLE = ["heads1", "odd"]
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     return parity.run_all(["wrap_tp", "mega", "split", "mega_cp", "mega_ep",
-                           "mega_ep_rows", "loop_tp_ema"],
+                           "ep_rows", "mega_ep_rows", "loop_tp_ema"],
                           tmp_path_factory.mktemp("sharded_megatron"), WORLD)
 
 
@@ -58,6 +71,8 @@ def test_wrapper_megatron_steps_match_jax_and_one_process(four_ranks):
     parity.check(four_ranks, "wrap_tp")
     _, ranks = four_ranks
     assert ranks[0]["wrap_tp/tp_sums"] > 0  # the blocks were partitioned
+    # and the embeddings and the head: their gathers over the axis
+    assert ranks[0]["wrap_tp/tp_gathers"] > 0
 
 
 def _rel(a, b):
@@ -79,10 +94,13 @@ def test_partitioned_derivatives_match_one_process(four_ranks, kind,
         assert _rel(got, want) <= 1e-10, (name, _rel(got, want))
         np.testing.assert_array_equal(holders[1][f"{key}/{name}"], got)
     sums = int(holders[0][f"{key}/sums"])
-    if kind == "odd":  # 3 heads and d_ff 33 over 2 ranks: nothing split
+    if kind == "odd":  # 3 heads and d_ff 33 over 2 ranks: no block split
         assert sums == 0
     else:  # heads1: the MLP alone is split; moe: the attention alone
         assert sums > 0
+    # the embeddings (d 16, or 12 for odd) are split: their stream is
+    # gathered over the axis
+    assert int(holders[0][f"{key}/gathers"]) > 0
 
 
 def test_a_rank_computes_half_of_a_block(four_ranks):
@@ -90,9 +108,18 @@ def test_a_rank_computes_half_of_a_block(four_ranks):
     for r in ranks:
         tp, one = (int(r[f"split/{k}/block_flops"]) for k in ("tp", "one"))
         assert tp > 0 and 2 * tp == one
-        # the embedding and the head stay whole: a little over half
-        tp, one = (int(r[f"split/{k}/forward_flops"]) for k in ("tp", "one"))
-        assert one / 2 < tp < one
+        # the embeddings and the head are split too: exactly half of the
+        # encoder's forward and of the decoder LM's, whose tied head
+        # contracts half the features
+        for forward in ("forward_flops", "dec_forward_flops"):
+            tp, one = (int(r[f"split/{k}/{forward}"]) for k in ("tp", "one"))
+            assert tp > 0 and 2 * tp == one
+        # with embed and pos under P() the spec keeps them whole, and so
+        # the tied head: the blocks' half plus the whole [N, T, d] x [d, V]
+        tp, one = (int(r[f"split/{k}/dec_whole_embed_flops"])
+                   for k in ("tp", "one"))
+        head = 2 * 4 * 8 * 16 * 12
+        assert 2 * tp == one + head
 
 
 def test_block_activations_hold_the_rank_share(four_ranks):
@@ -124,23 +151,36 @@ def test_megatron_refuses_context_and_expert_parallelism(four_ranks):
     for case in ("mega_cp", "mega_ep"):
         parity.check(four_ranks, case)
         for r in ranks:
-            assert r[f"{case}/tp_sums"] == 0
+            assert r[f"{case}/tp_sums"] == r[f"{case}/tp_gathers"] == 0
         # the Megatron-specced weights are still kept as blocks
         assert "(16, 24)" in str(ranks[0][f"{case}/shapes"])
 
 
-@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
-    "fault F5: with the rows split over the data axis each rank routes "
-    "its rows alone, where GSPMD routes all of a router group's rows"))
 def test_moe_with_rows_split_over_data_matches_jax(four_ranks):
-    """``mega_ep`` with the rows split over the data axis (the default
-    batch specs), against the JAX package's whole program: the MoE
-    routing's capacity and slot order differ, so this fails until the
-    fault is repaired, and then the marker goes."""
+    """Fault F5: Megatron attention + EP with the rows split over the data
+    axis (the default batch specs) and a loss summed over the rows,
+    against the JAX package's whole program: the MoE routes every rank's
+    rows together, and the aux counts once."""
     parity.check(four_ranks, "mega_ep_rows")
+
+
+def test_expert_parallel_with_rows_split_matches_jax(four_ranks):
+    """``ep_rows``: EP alone with the rows split, the in-step diagonal's
+    per-sample gradients routing each sample alone, against the JAX
+    package's whole program (``mega_ep``'s run)."""
+    parity.check(four_ranks, "ep_rows")
+
+
+@pytest.mark.parametrize("case", ["ep_rows", "mega_ep_rows"])
+def test_row_split_moe_draws_drop_choices(four_ranks, case):
+    """The capacity drops choices in one process's forward of the draw,
+    so routing each rank's rows alone would not match."""
+    refs, _ = four_ranks
+    assert refs[case][1]["dropped"] > 0
 
 
 def test_megatron_ema_loop_matches_jax_and_one_process(four_ranks):
     parity.check(four_ranks, "loop_tp_ema")
     _, ranks = four_ranks
     assert ranks[0]["loop_tp_ema/tp_sums"] > 0  # the blocks partitioned
+    assert ranks[0]["loop_tp_ema/tp_gathers"] > 0  # embeddings and head

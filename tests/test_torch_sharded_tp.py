@@ -46,7 +46,10 @@ def test_megatron_step_partitions_the_blocks(four_ranks):
     the step's forwards sum each sub-layer's partial over it."""
     _, ranks = four_ranks
     assert all(r["tp/tp_sums"] > 0 for r in ranks)
-    assert ranks[0]["wrap_cp/tp_sums"] == 0
+    # the embeddings, pos and the head too: gathered over the axis
+    assert all(r["tp/tp_gathers"] > 0 for r in ranks)
+    assert ranks[0]["wrap_cp/tp_sums"] == ranks[0]["wrap_cp/tp_gathers"] \
+        == 0
 
 
 def test_megatron_blocks_are_kept_sharded(four_ranks):
