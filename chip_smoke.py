@@ -2148,13 +2148,62 @@ def fixed_cg(A, b, **kwargs):
 
 def sharded_cg(shard, mvp, grad, damping):
     """:func:`fixed_cg` of the damped system ``mvp + damping`` on this
-    rank's blocks; returns the whole iterate and the m-history."""
-    def A(v):
-        whole = shard.gather(v)
-        return shard(mvp(whole) + damping * whole)
-
-    res = fixed_cg(A, -grad, shard_vec=shard, shard_buf=shard)
+    rank's blocks (``mvp`` and ``grad`` the rank's, as a sharded step's);
+    returns the whole iterate and the m-history."""
+    res = fixed_cg(lambda v: mvp(v) + damping * v, -grad, shard_vec=shard,
+                   shard_buf=shard)
     return shard.gather(res.x), res.m_hist
+
+
+def gloo_bytes(fn):
+    """``(fn(), bytes)``: what this rank hands to the collectives inside
+    ``fn``, by op: all-reduce buffers and all-to-all sends."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_to_all": 0, "all_reduce_calls": 0,
+              "all_to_all_calls": 0}
+    reduce, a2a = dist.all_reduce, dist.all_to_all_single
+
+    def all_reduce(t, *args, **kwargs):
+        counts["all_reduce"] += t.numel() * t.element_size()
+        counts["all_reduce_calls"] += 1
+        return reduce(t, *args, **kwargs)
+
+    def all_to_all_single(out, inp, *args, **kwargs):
+        counts["all_to_all"] += inp.numel() * inp.element_size()
+        counts["all_to_all_calls"] += 1
+        return a2a(out, inp, *args, **kwargs)
+
+    dist.all_reduce, dist.all_to_all_single = all_reduce, all_to_all_single
+    try:
+        return fn(), counts
+    finally:
+        dist.all_reduce, dist.all_to_all_single = reduce, a2a
+
+
+def local_tree(local, whole, specs, partitioned):
+    """A step's local tree against the whole one: its entries and bytes,
+    its largest leaf's shape, and whether a leaf whose spec
+    ``partitioned(spec)`` names reaches the forward whole."""
+    leaves, full = tree_flatten(local)[0], tree_flatten(whole)[0]
+    per_leaf = sharded._spec_leaves(sharded._param_shardings(None, whole,
+                                                             specs))
+    return {"entries": sum(t.numel() for t in leaves),
+            "bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "largest": list(max(leaves, key=lambda t: t.numel()).shape),
+            "whole_block_leaf": any(
+                partitioned(spec) and t.shape == w.shape
+                for t, w, spec in zip(leaves, full, per_leaf))}
+
+
+def tensor_split(spec):
+    """A leaf that the Megatron program partitions: its spec splits it."""
+    return any(part is not None for part in spec or ())
+
+
+def expert_split(spec):
+    """A leaf that expert parallelism partitions: an ExpertSpec's."""
+    return isinstance(spec, pmesh.ExpertSpec)
 
 
 def spec_blocks(params, specs, mesh):
@@ -2188,17 +2237,28 @@ def shard_resnet(mesh, rank, rec):
     rec["b_launches"] = ops.fused_cg_update.launches
     rec["b_peak"] = requested_bytes("peak") - base
     rec["b_block"] = state.x0.numel()
+    # a matvec's transfers in the step: the direction laid out to the
+    # local tree (every leaf whole here: an all-gather by all-to-all) and
+    # the product back to the rank's block (its own entries)
+    layout = sharded._Plan(fns, config, ravel, mesh, "data", "model", None,
+                           None, "mean", stacked=False).enter(
+                               opt.params, batch).ravel
     shard = sharded.ModelShard(pmesh.model_axis(mesh), ravel.dim)
     blk = torch.randn(shard.block, device="cuda")
-    rec["gather_ms"] = statistics.median(host_ms(lambda: shard.gather(blk),
-                                                 10))
+    tree = layout.unravel(blk)
+    rec["gather_ms"] = statistics.median(host_ms(
+        lambda: layout.unravel(blk), 10))
+    rec["ravel_ms"] = statistics.median(host_ms(
+        lambda: layout.ravel(tree), 10))
     rec["dot_ms"] = statistics.median(host_ms(lambda: shard.dot(blk, blk),
                                               20))
-    del step, state, blk
+    del step, state, blk, tree, layout
     with precision_ctx(config):
         _, grad, mvp = optimizer._build_matvec_and_grad(
             fns, config, ravel, opt.params, batch)
-        x_sharded, m_sharded = sharded_cg(shard, mvp, grad, config.damping)
+        x_sharded, m_sharded = sharded_cg(
+            shard, lambda u: shard(mvp(shard.gather(u))), shard(grad),
+            config.damping)
     dist.barrier()
     if rank == 0:
         with precision_ctx(config):
@@ -2240,14 +2300,26 @@ def decoder_problem(n_layers=LM["n_layers"]):
     return params, (tokens, tokens), fns, config, ravel
 
 
-def megatron_axes(config, ravel, mesh, params, specs, batch):
-    """The forward's axes that the sharded step's plan picks for the
-    Megatron ``specs`` (the rows replicated): the model axis as the tensor
-    axis, with the leaves outside the blocks that it splits."""
-    plan = sharded._Plan(config, ravel, mesh, "data", "model", specs,
+def megatron_values(fns, config, ravel, mesh, params, specs, batch, v):
+    """What the sharded step computes with under the Megatron ``specs``
+    (the rows replicated; ``sharded._Plan.enter``: the local tree of this
+    rank's blocks, the forward's axes, the layout) and one gradient +
+    build + GGN matvec on it: ``(entry, shard, (loss, grad, mvp, mvp(v)),
+    peak of requested bytes)``, the gradient and product this rank's
+    blocks."""
+    plan = sharded._Plan(fns, config, ravel, mesh, "data", "model", specs,
                          pmesh.PartitionSpec(), "mean", stacked=False)
-    plan.whole_params(params)
-    return plan.place(batch)[1]
+    e = plan.enter(spec_blocks(params, specs, mesh), batch)
+    vb = plan.shard(v)
+
+    def build():
+        with collectives.axes(**e.axes), precision_ctx(config):
+            loss, grad, mvp = optimizer._build_matvec_and_grad(
+                e.fns, config, e.ravel, e.params, e.batch, e.reduce)
+            return loss, grad, mvp, mvp(vb)
+
+    out, _, _, peak = with_peak(build)
+    return e, plan.shard, out, peak
 
 
 def forward_flops(fns, params, tokens, axes=None):
@@ -2325,41 +2397,30 @@ def shard_decoder(mesh, rank, rec):
     # CP beside the Megatron specs (15 g): the plan computes the blocks
     # gathered, so these are the CP forward's values
     t_g = time.perf_counter()
-    cp, mvp, local, axes = plan_values(fns, ravel, mesh, params, batch, v,
-                                       param_specs=specs,
-                                       batch_specs=P(None, "model"))
+    cp, mvp, cp_e, _ = plan_values(fns, ravel, mesh, params, batch, v,
+                                   param_specs=specs,
+                                   batch_specs=P(None, "model"))
     rec["g_time"] += time.perf_counter() - t_g
-    rec["g_mega_cp_roles"] = roles(axes)
+    rec["g_mega_cp_roles"] = roles(cp_e.axes)
     rec["g_mega_cp_grad"] = digest(cp[1])
-    with collectives.axes(**axes), precision_ctx(config):
-        solves = {"cp_cg": sharded_cg(shard, mvp, cp[1], config.damping)}
+    with collectives.axes(**cp_e.axes), precision_ctx(config):
+        solves = {"cp_cg": sharded_cg(shard, mvp, shard(cp[1]),
+                                      config.damping)}
     del mvp
-    whole = sharded.unshard_params(spec_blocks(params, specs, mesh), specs,
-                                   mesh, ravel)
-    tp_axes = megatron_axes(config, ravel, mesh, whole, specs, batch)
-    rec["tp_roles"] = roles(tp_axes) + sorted(tp_axes["tensor_leaves"])
+    # Megatron: the step's local tree (this rank's blocks), its forward
+    tp_e, _, (tp_loss, tp_grad, tp_mvp, tp_mv), rec["tp_peak"] = \
+        megatron_values(fns, config, ravel, mesh, params, specs, batch, v)
+    rec["tp_local"] = local_tree(tp_e.params, params, specs, tensor_split)
+    rec["tp_roles"] = roles(tp_e.axes) + sorted(tp_e.axes["tensor_leaves"])
     rec["tp_flops"], rec["tp_gathers"], rec["tp_sums"] = forward_flops(
-        fns, whole, tokens, tp_axes)
-    (tp_loss, tp_grad, tp_mvp, tp_mv), rec["tp_peak"] = values_and_peak(
-        fns, config, ravel, whole, batch, v, tp_axes)
-    rec["tp_grad"] = digest(tp_grad)
-    with collectives.axes(**tp_axes), precision_ctx(config):
+        fns, tp_e.params, tokens, tp_e.axes)
+    rec["tp_grad"] = digest(shard.gather(tp_grad))
+    vb = shard(v)
+    with collectives.axes(**tp_e.axes), precision_ctx(config):
         solves["tp_cg"] = sharded_cg(shard, tp_mvp, tp_grad, config.damping)
-    # the matvec against the same one with the blocks alone partitioned
-    # (the embeddings and the head whole, as before their partition), in
-    # turns: the host's load moves between calls
-    with collectives.axes(tensor=axis), precision_ctx(config):
-        blocks_mvp = optimizer._build_matvec_and_grad(
-            fns, config, ravel, whole, batch)[2]
-    times = {"tp": [], "blocks": []}
-    for _ in range(5):
-        for key, mvp_, ax in (("tp", tp_mvp, tp_axes),
-                              ("blocks", blocks_mvp, dict(tensor=axis))):
-            with collectives.axes(**ax), precision_ctx(config):
-                times[key] += host_ms(lambda: mvp_(v), 1)
-    rec["tp_mv_ms"] = statistics.median(times["tp"])
-    rec["tp_blocks_mv_ms"] = statistics.median(times["blocks"])
-    del tp_mvp, blocks_mvp
+        _, rec["tp_mv_bytes"] = gloo_bytes(lambda: tp_mvp(vb))
+        rec["tp_mv_ms"] = statistics.median(host_ms(lambda: tp_mvp(vb), 5))
+    del tp_mvp
     # the gloo ms of the collectives that the embeddings' and the head's
     # partition adds to a pass: the sum of the partial [32, 128, V]
     # logits, and the gather of the [32, 128, d / 2] stream blocks
@@ -2371,13 +2432,14 @@ def shard_decoder(mesh, rank, rec):
         host_ms(lambda: collectives._gather(stream, axis, 2), 5))
     del logits, stream
     with precision_ctx(config):
-        tp = [tp_loss, tp_grad, tp_mv,
-              hessian_matvec(fns, whole, tokens, ravel, v, tp_axes)]
+        tp = [tp_loss, shard.gather(tp_grad), shard.gather(tp_mv),
+              shard.gather(hessian_matvec(tp_e.fns, tp_e.params, tokens,
+                                          tp_e.ravel, vb, tp_e.axes))]
+    del tp_e, tp_grad, tp_mv
     _, rec["plain_peak"] = values_and_peak(fns, config, ravel, params, batch,
                                            v)
     t_g = time.perf_counter()
-    ema = joined_decoder(fns, config, ravel, mesh, params, batch, local, axes,
-                         rec)
+    ema = joined_decoder(fns, config, ravel, mesh, batch, cp_e, rec)
     rec["g_time"] += time.perf_counter() - t_g
     # the steps on the first STEP_LAYERS blocks (the values above: all)
     layers = STEP_LAYERS["decoder LM"]
@@ -2399,7 +2461,7 @@ def shard_decoder(mesh, rank, rec):
     rec["tp_launches"] = ops.fused_cg_update.launches
     rec["tp_block"] = list(tp_params["blocks"][0]["qkv"]["w"].shape)
     rec["c_step_n"] = s_ravel.dim
-    del cp_step, tp_step, tp_params, whole
+    del cp_step, tp_step, tp_params
     dist.barrier()
     if rank == 0:
         rec["one_flops"] = forward_flops(fns, params, tokens)[0]
@@ -2465,6 +2527,10 @@ def shard_moe(mesh, rank, rec):
     layers = STEP_LAYERS["MoE LM"]
     s_params, s_batch, _, _, s_ravel = moe_problem(layers)
     specs = models.moe_param_specs(layers)
+    rec["d_step_local"] = local_tree(sharded._Plan(
+        fns, config, s_ravel, mesh, "data", "model", specs, None, "mean",
+        stacked=False).enter(s_params, s_batch).params, s_params, specs,
+        expert_split)
     step = sharded.make_sharded_hf_step(fns, config, s_ravel, mesh,
                                         param_specs=specs)
     gc.collect()
@@ -2498,20 +2564,26 @@ def shard_moe(mesh, rank, rec):
 
 
 def plan_values(fns, ravel, mesh, params, batch, v, param_specs=None,
-                batch_specs=None):
-    """Loss, gradient and one GGN matvec under the axes and the reduction
-    that the sharded step's plan (``sharded._Plan``) picks for these
-    specs, the specced weights entering as the blocks a step keeps:
-    ``([loss, grad, mvp(v)], mvp, local batch, axes)``."""
+                batch_specs=None, probe=None):
+    """Loss, gradient and one GGN matvec as the sharded step computes them
+    for these specs (``sharded._Plan.enter``: the specced weights entering
+    as the blocks a step keeps, the local tree, the forward's axes, the
+    reduction, the layout), the gradient and product gathered whole to
+    compare: ``([loss, grad, mvp(v)], the matvec on this rank's blocks,
+    the entry, the plan's ModelShard)``.  ``probe(mvp, v block)`` runs on
+    the matvec before it is returned."""
     config = pkg.HFConfig(damping=1.0, cg_max_iter=50)
-    plan = sharded._Plan(config, ravel, mesh, "data", "model", param_specs,
-                         batch_specs, "mean", stacked=False)
-    whole = plan.whole_params(spec_blocks(params, param_specs, mesh))
-    local, axes, reduce = plan.place(batch)
-    with collectives.axes(**axes), precision_ctx(plan.config):
+    plan = sharded._Plan(fns, config, ravel, mesh, "data", "model",
+                         param_specs, batch_specs, "mean", stacked=False)
+    e = plan.enter(spec_blocks(params, param_specs, mesh), batch)
+    shard = plan.shard
+    with collectives.axes(**e.axes), precision_ctx(plan.config):
         loss, grad, mvp = optimizer._build_matvec_and_grad(
-            fns, plan.config, ravel, whole, local, reduce)
-        return [loss, grad, mvp(v)], mvp, local, axes
+            e.fns, plan.config, e.ravel, e.params, e.batch, e.reduce)
+        values = [loss, shard.gather(grad), shard.gather(mvp(shard(v)))]
+        if probe is not None:
+            probe(mvp, shard(v))
+        return values, mvp, e, shard
 
 
 def dropped_choices(fns, params, tokens):
@@ -2545,13 +2617,19 @@ def joined_moe(fns, ravel, mesh, params, batch, v, rec):
         blk.update(qkv={"w": P(None, "model"), "b": P("model")},
                    proj={"w": P("model", None), "b": P()})
     out = {}
+    def probe(mvp, vb):  # 15 d: the step's local tree and matvec
+        _, rec["d_mv_bytes"] = gloo_bytes(lambda: mvp(vb))
+        rec["d_mv_ms"] = statistics.median(host_ms(lambda: mvp(vb), 3))
+
     for key, kw in (("cp_ep", dict(param_specs=specs,
                                    batch_specs=P(None, "model"))),
-                    ("mega_ep", dict(param_specs=mega))):
-        values, mvp, _, axes = plan_values(fns, ravel, mesh, params, batch,
-                                           v, **kw)
+                    ("mega_ep", dict(param_specs=mega, probe=probe))):
+        values, mvp, e, _ = plan_values(fns, ravel, mesh, params, batch, v,
+                                        **kw)
         del mvp
-        rec[f"g_{key}_roles"] = roles(axes)
+        if key == "mega_ep":
+            rec["d_local"] = local_tree(e.params, params, mega, expert_split)
+        rec[f"g_{key}_roles"] = roles(e.axes)
         rec[f"g_{key}_grad"] = digest(values[1])
         out[key] = values
         gc.collect()
@@ -2565,34 +2643,32 @@ def roles(axes):
             if isinstance(a, collectives.Axis) and a.size > 1]
 
 
-def joined_decoder(fns, config, ravel, mesh, params, batch, local, axes,
-                   rec):
-    """15 g on one rank: the decoder LM's forward FLOPs under the axes of
-    the Megatron specs + CP (``axes``, the rank's positions ``local``), and
-    under CP the first EMA empirical-Fisher diagonal of the whole ``batch``
-    (fault F3) with its ms and peak, gathered whole."""
+def joined_decoder(fns, config, ravel, mesh, batch, mega_cp, rec):
+    """15 g on one rank: the decoder LM's forward FLOPs under the Megatron
+    specs + CP (``mega_cp``, the step's entry: whole weights, the rank's
+    positions), and under CP the first EMA empirical-Fisher diagonal of
+    the whole ``batch`` (fault F3) with its ms and peak, gathered whole."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    with torch.no_grad(), collectives.axes(**axes), \
+    with torch.no_grad(), collectives.axes(**mega_cp.axes), \
             FlopCounterMode(display=False) as counter:
-        fns.model_fn(params, local[0])
+        fns.model_fn(mega_cp.params, mega_cp.batch[0])
     rec["g_flops"] = counter.get_total_flops()
-    plan = sharded._Plan(config, ravel, mesh, "data", "model", None,
+    plan = sharded._Plan(fns, config, ravel, mesh, "data", "model", None,
                          pmesh.PartitionSpec(None, "model"), "mean",
                          stacked=False)
-    plan.whole_params(params)
-    local, axes, reduce = plan.place(batch)
+    e = plan.enter(mega_cp.params, batch)
 
     def first_ema():
-        with collectives.axes(**axes), precision_ctx(config):
-            d = optimizer._diag(fns, params, local[0], local[1],
-                                config.precond_reduction, ravel, reduce)
+        with collectives.axes(**e.axes), precision_ctx(config):
+            d = optimizer._diag(e.fns, e.params, e.batch[0], e.batch[1],
+                                config.precond_reduction, e.ravel, e.reduce)
         return pkg.EMADiag(0.9).update(plan.shard(d))
 
     ema, rec["g_diag_ms"], _, rec["g_diag_peak"] = with_peak(first_ema)
     rec["g_diag_block"] = ema.numel()
     rec["g_chunk_rows"] = max(1, sharded._ROW_CHUNK_BYTES // (
-        ravel.dim * ema.element_size()))
+        plan.shard.block * ema.element_size()))
     return plan.shard.gather(ema)
 
 
@@ -2649,13 +2725,12 @@ def shard_rows(mesh, rank, rec):
     params, batch, fns, config, ravel = moe_problem(STEP_LAYERS["MoE LM"])
     v = torch.randn(ravel.dim, device="cuda",
                     generator=torch.Generator("cuda").manual_seed(8))
-    values, mvp, local, axes = plan_values(fns, ravel, mesh, params, batch,
-                                           v)
+    values, mvp, e, _ = plan_values(fns, ravel, mesh, params, batch, v)
     del mvp
-    rec["h_roles"] = roles(axes)
+    rec["h_roles"] = roles(e.axes)
     rec["h_grad"] = digest(values[1])
-    rec["h_flops"], rec["h_moe_flops"] = moe_flops(fns, params, local[0],
-                                                   axes)
+    rec["h_flops"], rec["h_moe_flops"] = moe_flops(fns, e.params, e.batch[0],
+                                                   e.axes)
     step = sharded.make_sharded_hf_step(fns, config, ravel, mesh)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2854,7 +2929,7 @@ def phase_shard_resnet(r0, r1):
     total, per_device = r0["b_est"]
     measured = r0["b_ref_peak"] - r0["b_peak"]
     iters = [s["iters"] for s in r0["b_steps"]]
-    per_iter = r0["gather_ms"] + 2 * r0["dot_ms"]
+    per_iter = r0["gather_ms"] + r0["ravel_ms"] + 2 * r0["dot_ms"]
     print(f"15 b) two gloo ranks sharing the card, (data 1, model 2) mesh "
           f"({wall:.1f} s), ResNet-18/MNIST b32, 1 "
           f"make_sharded_hf_step step: K1 on {r0['b_block']:,} elements "
@@ -2878,13 +2953,41 @@ def phase_shard_resnet(r0, r1):
           f"total - per_device {(total - per_device) / 2**20:.1f} MiB "
           f"(solver_memory_bytes: {total / 2**20:.1f} MiB on one device, "
           f"{per_device / 2**20:.1f} MiB per rank of 2); gloo per CG "
-          f"iteration {per_iter:.1f} ms (a gather of the [{MAIN_N:,}] "
-          f"direction {r0['gather_ms']:.1f} ms + 2 scalar reductions "
-          f"{r0['dot_ms']:.3f} ms each, host clock, rank 0); "
+          f"iteration {per_iter:.1f} ms (the direction's block laid out "
+          f"to the whole local tree, one all-to-all, "
+          f"{r0['gather_ms']:.1f} ms + the product's tree to the rank's "
+          f"block, its own entries, {r0['ravel_ms']:.1f} ms + 2 scalar "
+          f"reductions {r0['dot_ms']:.3f} ms each, host clock, rank 0); "
           f"fused_cg_update launches {r0['b_launches']} + {r1['b_launches']}"
           f" = the ranks' CG iterations")
     phase_f2(r0)
     return launches
+
+
+# what each rank holds in a sharded step: the whole tree less the other
+# rank's half of each partitioned leaf (15 c: the decoder LM under its
+# Megatron specs, all but the layernorms, proj.b and ff2.b; 15 d: the MoE
+# LM's expert leaves under moe_param_specs, at 6 and at 2 blocks)
+TP_LOCAL = 9_762_304
+EP_LOCAL = 57_324_544
+EP_STEP_LOCAL = 19_502_080
+# the entries of the whole weights whose cotangents a vjp summed over the
+# tensor axis when the step gathered the weights (copy_to_axis): per
+# block qkv w and b, proj.w, ff1 w and b, ff2.w; embed twice (the lookup
+# and the tied head) and pos
+MEGATRON_WEIGHT_SUMS = LM["n_layers"] * (
+    4 * LM["d_model"] ** 2 + 3 * LM["d_model"]
+    + 2 * LM["d_model"] * LM["d_ff"] + LM["d_ff"]) \
+    + (2 * LM["vocab"] + 128) * LM["d_model"]
+
+
+def check_local_tree(where, r, key, want):
+    got = r[key]
+    if got["entries"] != want or got["whole_block_leaf"]:
+        raise AssertionError(f"{where} rank {r['rank']}: the step's local "
+                             f"tree holds {got['entries']:,} entries "
+                             f"against {want:,}, a whole partitioned leaf: "
+                             f"{got['whole_block_leaf']}")
 
 
 def phase_shard_decoder(r0, r1):
@@ -2910,7 +3013,8 @@ def phase_shard_decoder(r0, r1):
     # the blocks' matmuls and the tied head's split in halves: one gather
     # of the embeddings' stream and one sum per sub-layer and of the head's
     # partial logits per forward
-    want = (["tensor", "embed", "pos"], 1, 2 * LM["n_layers"] + 1)
+    want = (["tensor", "attention", "embed", "mlp", "pos"], 1,
+            2 * LM["n_layers"] + 1)
     for r in (r0, r1):
         got = (r["tp_roles"], r["tp_gathers"], r["tp_sums"])
         if not (got == want and 2 * r["tp_flops"] == r0["one_flops"]):
@@ -2919,6 +3023,7 @@ def phase_shard_decoder(r0, r1):
                                  f"{r0['one_flops']}, roles, gathers, sums "
                                  f"{got} against {want}: not split in "
                                  f"halves")
+        check_local_tree("15 c)", r, "tp_local", TP_LOCAL)
     ref = r0["c_ref_steps"]
     bounds = []
     for key, rels in (("cp_steps", r0["cp_rel"]), ("tp_steps", r0["tp_rel"])):
@@ -2935,6 +3040,8 @@ def phase_shard_decoder(r0, r1):
                    + launches_of("15 c)", r, "tp_launches", "tp_steps")
                    for r in (r0, r1))
     tpv = r0["tp_values_rel"]
+    tpb, tpl = r0["tp_mv_bytes"], r0["tp_local"]
+    gathered = tpb["all_reduce"] + 4 * DENSE_LM_N + 4 * MEGATRON_WEIGHT_SUMS
     print(f"15 c) the same two ranks ({wall:.1f} s), the "
           f"full-width decoder LM ({DENSE_LM_N:,} parameters, b32 x T128): "
           f"context parallel (batch_specs=P(None, 'model'), 64 + 64 "
@@ -2954,20 +3061,35 @@ def phase_shard_decoder(r0, r1):
           f"blocks and 1 of the [32, 128, {LM['vocab']}] logits): loss, "
           f"gradient, GGN and Hessian (one-shot) matvecs vs one process "
           f"{tpv[0]:.2e}, {tpv[1]:.2e}, {tpv[2]:.2e}, {tpv[3]:.2e} (<= "
-          f"1e-5), the ranks' gradients bitwise equal; forward FLOPs per "
+          f"1e-5), the ranks' gradients bitwise equal; each rank's local "
+          f"tree in the step {tpl['entries']:,} entries ({TP_LOCAL:,} "
+          f"predicted), {tpl['bytes'] / 1e6:.2f} MB (whole: "
+          f"{4 * DENSE_LM_N / 1e6:.2f} MB), its largest leaf "
+          f"{tpl['largest']}, no leaf at a whole partitioned leaf's "
+          f"shape; one GGN matvec hands gloo "
+          f"{tpb['all_reduce'] / 1e6:.1f} MB of all-reduce buffers in "
+          f"{tpb['all_reduce_calls']} calls and "
+          f"{tpb['all_to_all'] / 1e6:.1f} MB of all-to-all sends in "
+          f"{tpb['all_to_all_calls']} (CUDA tensors, no host copy) "
+          f"({(tpb['all_reduce'] + tpb['all_to_all']) / 1e6:.1f} MB; "
+          f"the gathered-weights form, computed: {gathered / 1e6:.1f} MB with "
+          f"the "
+          f"direction's {4 * DENSE_LM_N / 1e6:.1f} MB gather and the whole "
+          f"weights' {4 * MEGATRON_WEIGHT_SUMS / 1e6:.1f} MB of cotangent "
+          f"sums); forward FLOPs per "
           f"rank {r0['tp_flops']:,} / {r1['tp_flops']:,} against one "
           f"process's {r0['one_flops']:,} "
           f"({r0['tp_flops'] / r0['one_flops']:.2%}: exactly half); peak "
           f"requested bytes of one gradient + build "
           f"+ GGN matvec per rank {gib(r0['tp_peak']):.3f} / "
-          f"{gib(r1['tp_peak']):.3f} GiB partitioned, "
+          f"{gib(r1['tp_peak']):.3f} GiB partitioned (gathered weights: "
+          f"6.315), "
           f"{gib(r0['plain_peak']):.3f} / {gib(r1['plain_peak']):.3f} GiB "
           f"with replicated weights (param_specs=None), one process "
           f"{gib(r0['one_peak']):.3f} GiB; GGN matvec "
           f"{r0['tp_mv_ms']:.1f} ms partitioned (gloo on one card, host "
-          f"clock, median of 5, rank 0; {r0['tp_blocks_mv_ms']:.1f} ms with "
-          f"the blocks alone partitioned, the two timed in turns) against "
-          f"one process's {r0['one_mv_ms']:.1f} ms; the partitioned "
+          f"clock, median of 5, rank 0) against one process's "
+          f"{r0['one_mv_ms']:.1f} ms; the partitioned "
           f"embeddings and head add per pass a gloo sum of the [32, 128, "
           f"{LM['vocab']}] logits {r0['tp_logits_sum_ms']:.1f} ms and a "
           f"gather of the [32, 128, {LM['d_model']}] stream "
@@ -3004,22 +3126,40 @@ def phase_shard_moe(r0, r1):
     check_losses("15 d)", r0["d_steps"])
     if not max(r0["d_rel"]) <= 1e-5:
         raise AssertionError(f"15 d): loss, matvec {r0['d_rel']}")
+    for r in (r0, r1):
+        check_local_tree("15 d)", r, "d_local", EP_LOCAL)
+        check_local_tree("15 d)", r, "d_step_local", EP_STEP_LOCAL)
     launches = sum(launches_of("15 d)", r, "d_launches", "d_steps")
                    for r in (r0, r1))
     s = r0["d_steps"][0]
+    db, dl = r0["d_mv_bytes"], r0["d_local"]
     print(f"15 d) the same two ranks ({wall:.1f} s), the "
           f"full-width MoE LM ({MOE_N:,} parameters) under moe_param_specs "
           f"(w1 block {r0['d_block']}: 4 of 8 experts per rank): loss and "
           f"one GGN matvec through the expert-parallel forward (Megatron "
           f"specs on the attention, computed gathered: 15 g) vs one "
           f"process's {r0['d_rel'][0]:.2e}, {r0['d_rel'][1]:.2e} (relative,"
-          f" norm-wise, <= 1e-5); 1 step on the first "
+          f" norm-wise, <= 1e-5); each rank's local tree in the step "
+          f"{dl['entries']:,} entries ({EP_LOCAL:,} predicted), "
+          f"{dl['bytes'] / 1e6:.1f} MB (whole: {4 * MOE_N / 1e6:.1f} MB), "
+          f"its largest leaf {dl['largest']}, no leaf at a whole "
+          f"partitioned leaf's shape; one GGN matvec hands gloo "
+          f"{db['all_reduce'] / 1e6:.1f} MB of all-reduce buffers in "
+          f"{db['all_reduce_calls']} calls and "
+          f"{db['all_to_all'] / 1e6:.1f} MB of all-to-all sends in "
+          f"{db['all_to_all_calls']} (the gathered-weights "
+          f"form adds the direction's {4 * MOE_N / 1e6:.1f} MB gather and "
+          f"drops the all-to-alls) and takes {r0['d_mv_ms']:.1f} ms (host "
+          f"clock, median of 3); 1 step on the first "
           f"{STEP_LAYERS['MoE LM']} of the {LM['n_layers']} blocks "
           f"({r0['d_step_n']:,} parameters, K1 on {r0['d_step_n'] // 2:,} "
           f"per rank): loss {s['init']:.6f} -> "
           f"{s['final']:.6f}, {s['iters']} CG iterations on both ranks, "
-          f"{s['ms']:.1f} ms, replicas bitwise equal; peak memory per rank "
-          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB; "
+          f"{s['ms']:.1f} ms, replicas bitwise equal, its local tree "
+          f"{r0['d_step_local']['entries']:,} entries per rank "
+          f"({EP_STEP_LOCAL:,} predicted); peak memory per rank "
+          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB (gathered "
+          f"weights: 12.49); "
           f"launches {launches} = the ranks' CG "
           f"iterations")
     return launches

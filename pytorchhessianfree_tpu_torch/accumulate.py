@@ -128,18 +128,32 @@ def acc_loss(fns, params, data: Datalist, reduction: str) -> torch.Tensor:
     return loss
 
 
+def _reduced_ravel(ravel: TrainableRavel, reduce=None):
+    """The data term's tree -> its flat vector: ``ravel.ravel``, or with a
+    step's ``reduce`` (the data-parallel and sharded steps'), combined
+    across their ranks by ``reduce.ravel``."""
+    if reduce is None:
+        return ravel.ravel
+    return lambda tree: reduce.ravel(tree, ravel)
+
+
 def acc_grad(
     fns, params, data: Datalist, reduction: str, ravel: TrainableRavel
 ) -> torch.Tensor:
     """Accumulated flat gradient; the regularizer's gradient is added once,
-    after the chunks."""
+    after the chunks.  The chunks' gradient trees are summed and raveled
+    once."""
+    return _acc_grad(fns, params, data, reduction, ravel)
+
+
+def _acc_grad(fns, params, data, reduction, ravel, reduce=None):
+    """:func:`acc_grad`, the data term raveled by :func:`_reduced_ravel`."""
 
     def chunk_grad(x, y):
-        return ravel.ravel(
-            value_and_grad(lambda p: fns.data_loss(p, (x, y)), params)[1]
-        )
+        return value_and_grad(lambda p: fns.data_loss(p, (x, y)), params)[1]
 
-    out = acc_reduce(data, chunk_grad, reduction)
+    out = _reduced_ravel(ravel, reduce)(acc_reduce(data, chunk_grad,
+                                                  reduction))
     if fns.loss_reg is not None:
         out = out + ravel.ravel(grad(fns.loss_reg)(params))
     return out
@@ -162,7 +176,16 @@ def make_acc_mvp(
     chunks once and replay the linearization on every call, which holds
     every chunk's tangent graph at once.
     """
+    return _make_acc_mvp(fns, config, params, data, reduction, ravel,
+                         amortize)
+
+
+def _make_acc_mvp(fns, config, params, data, reduction, ravel, amortize,
+                  reduce=None):
+    """:func:`make_acc_mvp`, the data term's products raveled by
+    :func:`_reduced_ravel`."""
     _check_reduction(reduction)
+    flat = _reduced_ravel(ravel, reduce)
     if amortize and config.curvature_opt == "ggn" and _is_stacked(data):
         chunks = _chunks(data)
         w = 1.0 / len(chunks) if reduction == "mean" else 1.0
@@ -178,7 +201,7 @@ def make_acc_mvp(
         _, _, _, gv = ggnvp_fn(total_model, total_outer, params)
 
         def mvp_amortized(v: torch.Tensor) -> torch.Tensor:
-            return ravel.ravel(gv(ravel.unravel(v)))
+            return flat(gv(ravel.unravel(v)))
 
         return mvp_amortized
 
@@ -187,17 +210,15 @@ def make_acc_mvp(
 
         def chunk_mvp(x, y):
             if config.curvature_opt == "ggn":
-                return ravel.ravel(ggnvp(
+                return ggnvp(
                     lambda p: fns.model_fn(p, x),
                     lambda o: fns.loss_outer(o, y),
                     params,
                     tangent,
-                ))
-            return ravel.ravel(
-                hvp(lambda p: fns.data_loss(p, (x, y)), params, tangent)
-            )
+                )
+            return hvp(lambda p: fns.data_loss(p, (x, y)), params, tangent)
 
-        out = acc_reduce(data, chunk_mvp, reduction)
+        out = flat(acc_reduce(data, chunk_mvp, reduction))
         if config.curvature_opt == "hessian" and fns.loss_reg is not None:
             # the Hessian of the objective holds the regularizer's once; the
             # GGN, defined through the outputs, holds none of it

@@ -20,7 +20,10 @@ Expert parallelism (:func:`moe_param_specs` through
 :func:`~..parallel.collectives.expert_axis`): the router and the dispatch
 stay replicated; each of the axis's ``M`` ranks runs the expert MLPs of
 its ``E / M`` experts on their slots only, and one ``all_reduce`` per
-layer sums the ranks' partial combines.
+layer sums the ranks' partial combines.  The expert leaves are read
+through :func:`~..parallel.collectives.leaf_block`: the sharded step
+passes each rank's ``E / M`` experts alone, so no rank holds the other
+ranks' expert weights.
 
 Context parallelism (a split sequence axis, read from
 :func:`~..parallel.collectives.sequence_axis`): attention runs over the
@@ -223,7 +226,8 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
                 f"{E} experts do not divide over {ep.size} ranks")
         lo, hi = ep.rank * E // ep.size, (ep.rank + 1) * E // ep.size
         dispatch, combine = dispatch[..., lo:hi, :], combine[..., lo:hi, :]
-        w1, b1, w2, b2 = w1[lo:hi], b1[lo:hi], w2[lo:hi], b2[lo:hi]
+        w1, b1, w2, b2 = (collectives.leaf_block(t, ep, "experts", 0)
+                          for t in (w1, b1, w2, b2))
 
     xe = torch.einsum("sgec,sgd->secd", dispatch, hg)
     h1 = F.gelu(

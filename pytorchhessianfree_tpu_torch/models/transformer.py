@@ -30,7 +30,7 @@ scores the rank's positions against the next tokens, across the shard
 boundary, as its share of the mean over all ``N (T - 1)`` predictions.
 
 Tensor parallelism (:mod:`~..parallel.sharded` under Megatron
-``param_specs``, read from :func:`~..parallel.collectives.tensor_axis`):
+``param_specs``, read from :func:`~..parallel.collectives.tensor_role`):
 the ``M`` ranks run one replicated program and split each block's work.
 Rank ``m`` computes heads ``[m H / M, (m + 1) H / M)``: columns ``[m d /
 M, (m + 1) d / M)`` of each of Q, K and V of the fused ``qkv`` weight and
@@ -39,13 +39,17 @@ bias, attention on those heads, and rows ``[m d / M, (m + 1) d / M)`` of
 b) with the matching rows of ``ff2.w``.  Each sub-layer's partial ``[N, T,
 d]`` is summed over the axis by
 :func:`~..parallel.collectives.reduce_from_axis` before its output bias is
-added; the layernormed input and each whole weight enter through
-:func:`~..parallel.collectives.copy_to_axis` before they are sliced, so
-their cotangents are summed over the axis and every rank gets the whole
-gradient.  A head count or ``d_ff`` that ``M`` does not divide keeps that
-sub-layer whole on every rank.  Of the leaves outside the blocks, those
-that the plan splits over the axis
-(:func:`~..parallel.collectives.tensor_leaf`, from the Megatron specs'
+added; the layernormed input enters through
+:func:`~..parallel.collectives.copy_to_axis`, so its cotangent is summed
+over the axis and every rank gets the whole cotangent of what comes before
+the split.  Every split leaf is read through
+:func:`~..parallel.collectives.leaf_block`: the sharded step passes it as
+this rank's block already (the block the plan recorded from a forward on
+whole leaves), so no rank holds a whole split weight and each weight's
+derivative is this rank's block of the whole program's; a forward given
+whole leaves narrows them.  A head count or ``d_ff`` that ``M`` does not
+divide keeps that sub-layer whole on every rank.  Of the leaves outside
+the blocks, those that the plan splits over the axis (the Megatron specs'
 ``embed`` and ``pos`` under ``P(None, model)`` and the head's ``w`` under
 ``P(None, model)``, ``b`` under ``P(model)``) are computed on the rank's
 block too: the embeddings look up the rank's ``d / M`` feature columns
@@ -205,32 +209,19 @@ def _chunked_attention(q, k, v, causal: bool, chunk: int, offset: int = 0):
     return torch.cat(outs, dim=2)
 
 
-def _tensor_split(count: int) -> Optional[collectives.Axis]:
-    """The tensor axis (:func:`~..parallel.collectives.tensor_axis`) when
-    its ranks share ``count`` heads or feed-forward columns evenly; else
-    ``None``, and the sub-layer computes them all on every rank."""
-    tp = collectives.tensor_axis()
-    if tp is None or tp.size == 1 or count % tp.size:
-        return None
-    return tp
+def _columns(x, tp):
+    """This rank's block of the last axis of the replicated activation
+    ``x``, which enters through
+    :func:`~..parallel.collectives.copy_to_axis` (its cotangent summed
+    over the axis)."""
+    k = x.shape[-1] // tp.size
+    return collectives.copy_to_axis(x, tp).narrow(-1, tp.rank * k, k)
 
 
-def _leaf_split(name: str, width: int) -> Optional[collectives.Axis]:
-    """The tensor axis when the plan splits the leaf ``name`` outside the
-    blocks over it (:func:`~..parallel.collectives.tensor_leaf`) and its
-    ranks share ``width`` features or classes evenly; else ``None``."""
-    tp = collectives.tensor_leaf(name)
-    if tp is None or tp.size == 1 or width % tp.size:
-        return None
-    return tp
-
-
-def _columns(w, tp):
-    """This rank's block of the last axis of the replicated ``w``, which
-    enters through :func:`~..parallel.collectives.copy_to_axis` (its
-    cotangent summed over the axis)."""
-    k = w.shape[-1] // tp.size
-    return collectives.copy_to_axis(w, tp).narrow(-1, tp.rank * k, k)
+def _leaf_columns(w, tp, role):
+    """This rank's block of the last axis of the parameter leaf ``w``
+    (:func:`~..parallel.collectives.leaf_block`)."""
+    return collectives.leaf_block(w, tp, role, w.dim() - 1)
 
 
 def _inputs(params, tokens, onehot: bool):
@@ -238,11 +229,13 @@ def _inputs(params, tokens, onehot: bool):
     the tensor axis is looked up on this rank's ``d / M`` columns, and the
     split part of the sum is gathered over the axis (module docstring)."""
     d = params["embed"].shape[-1]
-    tp_e, tp_p = _leaf_split("embed", d), _leaf_split("pos", d)
+    tp_e = collectives.tensor_role("embed", d)
+    tp_p = collectives.tensor_role("pos", params["pos"].shape[-1])
     if tp_e is not None:
-        params = dict(params, embed=_columns(params["embed"], tp_e))
+        params = dict(params, embed=_leaf_columns(params["embed"], tp_e,
+                                                  "embed"))
     if tp_p is not None:
-        params = dict(params, pos=_columns(params["pos"], tp_p))
+        params = dict(params, pos=_leaf_columns(params["pos"], tp_p, "pos"))
     e, p = _embed(params, tokens, onehot), _positions(params, tokens)
     if tp_e is not None and tp_p is not None:
         return collectives.gather_from_axis(e + p, tp_e)
@@ -254,10 +247,10 @@ def _tied_head(x, embed):
     """``x @ embed.T``, or under a tensor axis that splits ``embed`` the
     rank's ``d / M`` columns of both contracted and the partial logits
     summed over the axis (module docstring)."""
-    tp = _leaf_split("embed", embed.shape[-1])
+    tp = collectives.tensor_role("embed", embed.shape[-1])
     if tp is None:
         return x @ embed.T
-    partial_logits = _columns(x, tp) @ _columns(embed, tp).T
+    partial_logits = _columns(x, tp) @ _leaf_columns(embed, tp, "embed").T
     return collectives.reduce_from_axis(partial_logits, tp)
 
 
@@ -265,12 +258,13 @@ def _head(p, x):
     """The dense head ``x @ w + b``, or under a tensor axis that splits it
     the rank's ``C / M`` classes, gathered over the axis (module
     docstring)."""
-    tp = _leaf_split("head", p["w"].shape[-1])
+    tp = collectives.tensor_role("head", p["w"].shape[-1])
     if tp is None:
         return _apply_dense(p, x)
     x = collectives.copy_to_axis(x, tp)
     return collectives.gather_from_axis(
-        x @ _columns(p["w"], tp) + _columns(p["b"], tp), tp)
+        x @ _leaf_columns(p["w"], tp, "head")
+        + collectives.leaf_block(p["b"], tp, "head", 0), tp)
 
 
 def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
@@ -281,7 +275,7 @@ def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
     d_head = d_model // n_heads
 
     h = _layernorm(blk["ln1"], x)
-    tp = _tensor_split(n_heads)
+    tp = collectives.tensor_role("attention", n_heads)
     if tp is None:
         local_heads = n_heads
         qkv = _apply_dense(blk["qkv"], h)  # [N, T, 3*d]
@@ -289,13 +283,10 @@ def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
         # the fused [d, 3d] weight holds Q, K and V at multiples of d, so
         # this rank's heads are one column range of each
         local_heads = n_heads // tp.size
-        width = local_heads * d_head
         h = collectives.copy_to_axis(h, tp)
-        w = collectives.copy_to_axis(blk["qkv"]["w"], tp)
-        b = collectives.copy_to_axis(blk["qkv"]["b"], tp)
-        w = w.reshape(d_model, 3, tp.size, width)[:, :, tp.rank]
-        b = b.reshape(3, tp.size, width)[:, tp.rank]
-        qkv = h @ w.reshape(d_model, 3 * width) + b.reshape(3 * width)
+        w = collectives.leaf_block(blk["qkv"]["w"], tp, "attention", 1, 3)
+        b = collectives.leaf_block(blk["qkv"]["b"], tp, "attention", 0, 3)
+        qkv = h @ w + b
     q, k, v = torch.split(qkv, local_heads * d_head, dim=-1)
 
     def heads(t):  # [N, T, h * d_head] -> [N, h, T, d_head]
@@ -315,8 +306,7 @@ def _attention_sublayer(blk, x, n_heads: int, causal: bool, attn_chunk):
     out = out.permute(0, 2, 1, 3).reshape(N, T, local_heads * d_head)
     if tp is None:
         return x + _apply_dense(blk["proj"], out)
-    rows = collectives.copy_to_axis(blk["proj"]["w"], tp).narrow(
-        0, tp.rank * out.shape[-1], out.shape[-1])
+    rows = collectives.leaf_block(blk["proj"]["w"], tp, "attention", 0)
     return x + (collectives.reduce_from_axis(out @ rows, tp)
                 + blk["proj"]["b"])
 
@@ -326,17 +316,14 @@ def _mlp_sublayer(blk, x):
     Under a tensor axis this rank computes its ``d_ff / M`` columns of
     ``ff1`` and the matching rows of ``ff2`` (module docstring)."""
     h = _layernorm(blk["ln2"], x)
-    d_ff = blk["ff1"]["w"].shape[-1]
-    tp = _tensor_split(d_ff)
+    tp = collectives.tensor_role("mlp", blk["ff1"]["w"].shape[-1])
     if tp is None:
         h = F.gelu(_apply_dense(blk["ff1"], h), approximate="tanh")
         return x + _apply_dense(blk["ff2"], h)
-    cols = d_ff // tp.size
-    start = tp.rank * cols
     h = collectives.copy_to_axis(h, tp)
-    w1 = collectives.copy_to_axis(blk["ff1"]["w"], tp).narrow(1, start, cols)
-    b1 = collectives.copy_to_axis(blk["ff1"]["b"], tp).narrow(0, start, cols)
-    w2 = collectives.copy_to_axis(blk["ff2"]["w"], tp).narrow(0, start, cols)
+    w1 = collectives.leaf_block(blk["ff1"]["w"], tp, "mlp", 1)
+    b1 = collectives.leaf_block(blk["ff1"]["b"], tp, "mlp", 0)
+    w2 = collectives.leaf_block(blk["ff2"]["w"], tp, "mlp", 0)
     h = F.gelu(h @ w1 + b1, approximate="tanh")
     return x + (collectives.reduce_from_axis(h @ w2, tp) + blk["ff2"]["b"])
 

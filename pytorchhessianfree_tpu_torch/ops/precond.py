@@ -20,7 +20,12 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
-from ..utils.flatten import TrainableRavel, tree_flatten, tree_map
+from ..utils.flatten import (
+    TrainableRavel,
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def _one_sample_loss(model_fn, loss_outer):
@@ -48,14 +53,23 @@ def _num_samples(inputs) -> int:
     return tree_flatten(inputs)[0][0].shape[0]
 
 
-def _sample_grad_rows(model_fn, loss_outer, params, inputs, targets,
-                      ravel: TrainableRavel) -> torch.Tensor:
-    """Every sample's flat gradient, ``[N, dim]``, from one batched pass;
-    the tree out of ``vmap`` is flattened outside it."""
-    per_sample = vmap(
+def _sample_grads(model_fn, loss_outer, params, inputs, targets):
+    """Every sample's gradient tree, leaves ``[N, ...]``, from one batched
+    pass."""
+    return vmap(
         grad(_one_sample_loss(model_fn, loss_outer)), in_dims=(None, 0, 0)
     )(params, inputs, targets)
-    return ravel.ravel_rows(per_sample)
+
+
+def _pairwise_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s sum over dimension 0, adjacent rows added pairwise level by
+    level: one order for every entry, whatever the leaf's other dimensions
+    (``torch.sum`` orders a width's last few columns otherwise), so that a
+    leaf and a block of it sum each entry alike."""
+    while t.shape[0] > 1:
+        pairs = t[0:t.shape[0] // 2 * 2:2] + t[1::2]
+        t = torch.cat([pairs, t[-1:]]) if t.shape[0] % 2 else pairs
+    return t[0]
 
 
 def diag_EF(
@@ -71,17 +85,26 @@ def diag_EF(
     """Diagonal of the empirical Fisher from one batched pass.
 
     The per-sample gradient tree comes out of ``vmap`` with ``[N, ...]``
-    leaves and is flattened outside it (:meth:`TrainableRavel.ravel_rows`).
-    With ``loss_reg``, its one gradient is added to every row before
+    leaves; each leaf's squares are summed over the samples pairwise
+    (:func:`_pairwise_sum`), and the tree of sums is raveled once.  With
+    ``loss_reg``, its one gradient is added to every sample's before
     squaring (the reference's ``diag_EF_autograd``, the variant documented
-    for L2-regularized losses)."""
+    for L2-regularized losses).
+
+    ``ravel`` may be a sharded step's local layout
+    (:class:`~..parallel.layout.LocalLayout`): a leaf that the forward
+    splits is then this rank's block, whose per-sample gradients are the
+    rank's block of the whole program's, so their squares sum alike and
+    are laid out to the rank's flat block."""
     _check_reduction(reduction)
-    grads = _sample_grad_rows(model_fn, loss_outer, params, inputs, targets,
-                              ravel)
-    reg = _reg_grad(loss_reg, params, ravel)
-    if reg is not None:
-        grads = grads + reg[None, :]
-    diag = torch.sum(grads**2, dim=0)
+    leaves, treedef = tree_flatten(
+        _sample_grads(model_fn, loss_outer, params, inputs, targets))
+    leaves = [g.to(ravel.dtype) for g in leaves]
+    if loss_reg is not None:
+        reg = tree_flatten(grad(loss_reg)(params))[0]
+        leaves = [g + r.to(ravel.dtype) for g, r in zip(leaves, reg)]
+    diag = ravel.ravel(tree_unflatten(
+        treedef, [_pairwise_sum(g**2) for g in leaves]))
     if reduction == "mean":
         diag = diag / _num_samples(inputs)
     return diag

@@ -181,6 +181,14 @@ def simple_linesearch(
     ``batch_chunk=k``, in ``ceil(max_iter / k)`` sweeps of ``k``, the last
     one padded with the last alpha) and takes the largest accepted one.
     """
+    return _linesearch(f, torch.dot(f_grad_0, step), step, f_0, init_alpha,
+                       beta, c, max_iter, mode, batch_chunk)
+
+
+def _linesearch(f, slope, step, f_0, init_alpha=1.0, beta=0.8, c=1e-2,
+                max_iter=20, mode="sequential", batch_chunk=None):
+    """:func:`simple_linesearch` given the slope ``grad . step`` (a rank's
+    block dot reduced over the ranks in a sharded step)."""
     if beta >= 1.0:
         raise ValueError(f"Invalid reduction factor beta = {beta}")
     if c < 0.0:
@@ -189,7 +197,7 @@ def simple_linesearch(
         raise ValueError(f"Invalid line-search max_iter {max_iter}")
 
     dtype, device = step.dtype, step.device
-    c_dir = c * torch.dot(f_grad_0, step)
+    c_dir = c * slope
     not_descent = bool((c_dir >= 0).item())
 
     if mode == "batched":

@@ -52,7 +52,7 @@ from .ops.nystrom import (
     nystrom_sketch,
     nystrom_to_preconditioner,
 )
-from .ops.select import cg_efficient_backtracking, simple_linesearch
+from .ops.select import _linesearch, cg_efficient_backtracking
 from .ops.spectrum import normalized_probes, ritz, slq
 from .parallel import collectives
 from .utils.flatten import TrainableRavel, tree_flatten, tree_map
@@ -180,25 +180,16 @@ def _step_core(
     """Solve, select and update on flat vectors, in the reference's phase
     order.  ``loss_at(delta)`` is the loss at ``params + delta``.
 
-    With a hook that keeps a rank's block and can ``gather`` the blocks
-    back (:class:`~.parallel.sharded.ModelShard`), CG runs on the rank's
-    blocks of every vector and of the iterate grid (``ops.cg``): the
-    gradient enters as its block, each matvec gathers its direction,
-    applies ``mvp_vec`` to the whole vector and keeps its block, and every
-    trial loss gathers its step.  The chosen step is gathered once; the
-    line search and the update run on whole vectors, alike on every
-    rank."""
+    With a hook that keeps a rank's block of a vector and reduces dot
+    products over the ranks (:class:`~.parallel.sharded.ModelShard`), CG
+    runs on the rank's blocks of every vector and of the iterate grid
+    (``ops.cg``); ``ravel`` then maps the rank's block to its local
+    parameter tree (:class:`~.parallel.layout.LocalLayout`), so the
+    matvec, every trial loss, the line search (its slope a block dot and
+    one reduction) and the update take the rank's block, and no rank
+    builds a whole flat vector."""
     damping = state.damping
     sv = shard_vec if shard_vec is not None else (lambda v: v)
-    gather = getattr(shard_vec, "gather", None)
-    grad_full, loss_full = grad_vec, loss_at
-    if gather is not None:
-        whole_mvp = mvp_vec
-
-        def mvp_vec(v):
-            return sv(whole_mvp(gather(v)))
-
-        loss_at = _gathered(loss_at, gather)
     grad_vec = sv(grad_vec)
 
     def A(v):
@@ -252,12 +243,10 @@ def _step_core(
             # the final iterate's slot, as the JAX package records it
             bt_f = torch.cat([nan.expand(G1 - 1), f_at_final[None]])
 
-    if gather is not None:
-        step_vec = gather(step_vec)
     if config.use_linesearch:
-        ls = simple_linesearch(
-            loss_full,
-            grad_full,
+        ls = _linesearch(
+            loss_at,
+            ravel.dot(grad_vec, step_vec),
             step_vec,
             f_0=init_loss,
             init_alpha=config.lr,
@@ -273,7 +262,7 @@ def _step_core(
     else:
         lr = grad_vec.new_tensor(config.lr)
         final_loss = (
-            loss_full(lr * step_vec) if config.compute_final_loss else nan
+            loss_at(lr * step_vec) if config.compute_final_loss else nan
         )
         ls_failed, not_descent = False, False
 
@@ -323,25 +312,6 @@ def _step_core(
     return new_params, new_state, stats
 
 
-def _gathered(loss_at, gather):
-    """``loss_at`` of whole steps as a function of a rank's blocks: each
-    trial gathers its step, and a batched sweep gathers its rows."""
-
-    def at(delta):
-        return loss_at(gather(delta))
-
-    whole_sweep = getattr(loss_at, "sweep", None)
-
-    def sweep(deltas):
-        deltas = gather(deltas)
-        if whole_sweep is None:
-            return torch.func.vmap(loss_at)(deltas)
-        return whole_sweep(deltas)
-
-    at.sweep = sweep
-    return at
-
-
 def _maybe_remat(fns: HFModelFns, config: HFConfig) -> HFModelFns:
     """Apply ``config.remat``: checkpoint the model forward (resp.
     ``loss_fn``) so that derivatives recompute its activations instead of
@@ -381,9 +351,9 @@ def _build_matvec_and_grad(
     path linearizes ``(grad, value)`` of the loss once per batch.
 
     ``reduce`` (the data-parallel steps' ``all_reduce``; see
-    :func:`_reduce_then_regularize`) combines the data term's loss,
-    gradient and each matvec product across ranks, outside every
-    transform, before the regularizer is added.
+    :func:`.accumulate._reduced_ravel` and :func:`_regularize`) combines
+    the data term's loss, gradient and each matvec product across ranks,
+    outside every transform, before the regularizer is added.
 
     ``config.curvature_dtype`` (e.g. ``"bfloat16"``): the matvec runs
     through a cast of the parameters and of the floating leaves of the
@@ -467,40 +437,37 @@ def _build_matvec_and_grad(
             else:
                 mvp_tree = hvp_fn(lp_loss_of, lp_params)[2]
 
+    flat = acc._reduced_ravel(ravel, reduce)
+
     def mvp_vec(v):
-        return ravel.ravel(mvp_tree(cast(ravel.unravel(v))))
+        return flat(mvp_tree(cast(ravel.unravel(v))))
 
-    return _reduce_then_regularize(
-        config, ravel, params, loss, ravel.ravel(grad_tree), mvp_vec, reg,
-        reduce,
-    )
-
-
-def _reduce_then_regularize(config, ravel, params, loss, grad_vec, mvp_vec,
-                            reg, reduce):
-    """The data term's loss, flat gradient and matvec, each combined across
-    ranks by ``reduce`` when it is given, plus the regularizer ``reg`` when
-    it is given.  ``reg`` depends only on the parameters, alike on every
-    rank, so it is added after the reduction and counts once: in the loss
-    and the gradient, and in the matvec for the Hessian (the GGN, defined
-    through the model outputs, holds none of it)."""
     if reduce is not None:
-        loss, grad_vec = reduce(loss), reduce(grad_vec)
-    if reg is None and reduce is None:
+        loss = reduce(loss)
+    return _regularize(config, ravel, params, loss, flat(grad_tree),
+                       mvp_vec, reg)
+
+
+def _regularize(config, ravel, params, loss, grad_vec, mvp_vec, reg):
+    """The data term's loss, flat gradient and matvec (combined across
+    ranks already, where a step reduces them), plus the regularizer
+    ``reg`` when it is given.  ``reg`` depends only on the parameters,
+    alike on every rank, so it is added after the reduction and counts
+    once: in the loss and the gradient, and in the matvec for the Hessian
+    (the GGN, defined through the model outputs, holds none of it)."""
+    if reg is None:
         return loss, grad_vec, mvp_vec
     reg_mvp = None
-    if reg is not None:
-        reg_val, reg_grad = value_and_grad(reg, params)
-        loss = loss + reg_val
-        grad_vec = grad_vec + ravel.ravel(reg_grad)
-        if config.curvature_opt == "hessian":
-            reg_mvp = hvp_fn(reg, params)[2]
+    reg_val, reg_grad = value_and_grad(reg, params)
+    loss = loss + reg_val
+    grad_vec = grad_vec + ravel.ravel(reg_grad)
+    if config.curvature_opt == "hessian":
+        reg_mvp = hvp_fn(reg, params)[2]
+    if reg_mvp is None:
+        return loss, grad_vec, mvp_vec
 
     def full_mvp(v):
-        out = mvp_vec(v) if reduce is None else reduce(mvp_vec(v))
-        if reg_mvp is not None:
-            out = out + ravel.ravel(reg_mvp(ravel.unravel(v)))
-        return out
+        return mvp_vec(v) + ravel.ravel(reg_mvp(ravel.unravel(v)))
 
     return loss, grad_vec, full_mvp
 
@@ -607,25 +574,27 @@ def _split_reg(fns: HFModelFns, reduce):
 def _loss_at(data_at, reg, ravel: TrainableRavel, params, reduce=None):
     """``loss_at(delta)``: ``data_at(params + delta)``, combined across
     ranks by ``reduce`` when it is given, plus ``reg`` at the same point
-    when it is given.  With ``reduce`` it carries the ``sweep`` of
-    :mod:`.ops.select`, which reduces the vector of trial losses after the
-    ``vmap`` (no collective runs inside one)."""
+    when it is given.  It carries the ``sweep`` of :mod:`.ops.select`: the
+    rows are laid out before the ``vmap`` (in a sharded step, one transfer
+    between the ranks, :meth:`~.parallel.layout.LocalLayout.add_rows`) and
+    the vector of trial losses is reduced after it (no collective of the
+    step runs inside one)."""
 
     def loss_at(delta):
         p = ravel.add(params, delta)
         loss = data_at(p) if reduce is None else reduce(data_at(p))
         return loss if reg is None else loss + reg(p)
 
-    if reduce is not None:
-        def sweep(deltas):
-            losses = reduce(torch.func.vmap(
-                lambda d: data_at(ravel.add(params, d)))(deltas))
-            if reg is not None:
-                losses = losses + torch.func.vmap(
-                    lambda d: reg(ravel.add(params, d)))(deltas)
-            return losses
+    def sweep(deltas):
+        points = ravel.add_rows(params, deltas)
+        losses = torch.func.vmap(data_at)(points)
+        if reduce is not None:
+            losses = reduce(losses)
+        if reg is not None:
+            losses = losses + torch.func.vmap(reg)(points)
+        return losses
 
-        loss_at.sweep = sweep
+    loss_at.sweep = sweep
     return loss_at
 
 
@@ -638,9 +607,12 @@ def _diag(fns, params, inputs, targets, reduction, ravel, reduce=None,
     per-sample gradient sees its sample alone, with no batch statistics
     across the ranks (:func:`~.parallel.collectives.local_batch`), as a
     ``vmap`` over samples gives each a batch of one in the JAX package.
-    ``reduce.sample_squares`` computes a rank's sum of squares: under a
-    model axis each sample's gradient is made whole first
-    (:meth:`~.parallel.sharded._AxesReduce.sample_squares`)."""
+    ``reduce.sample_squares`` computes a rank's sum of squares: under the
+    joined program of a model axis each sample's gradient is made whole
+    first (:meth:`~.parallel.sharded._AxesReduce.sample_squares`); under
+    Megatron tensor parallelism a split leaf's per-sample gradient is the
+    rank's block of the whole already, and ``diag`` lays the squares out
+    to the rank's flat block (:func:`~.ops.precond.diag_EF`)."""
     if reduce is None:
         return diag(fns.model_fn, fns.loss_outer, params, inputs, targets,
                     reduction, ravel, loss_reg=fns.loss_reg)
@@ -873,13 +845,15 @@ def _acc_parts(fns, config, ravel, params, loss_data, grad_data, mvp_data,
     """:func:`_hf_acc_step`'s loss, flat gradient, matvec and ``loss_at``
     over the datalists (with ``reduce``, this rank's chunks)."""
     fns, reg = _split_reg(_maybe_remat(fns, config), reduce)
-    init_loss, grad_vec, mvp_vec = _reduce_then_regularize(
-        config, ravel, params,
-        acc.acc_loss(fns, params, loss_data, reduction),
-        acc.acc_grad(fns, params, grad_data, reduction, ravel),
-        acc.make_acc_mvp(fns, config, params, mvp_data, reduction, ravel,
-                         amortize=mvp_amortize),
-        reg, reduce,
+    loss = acc.acc_loss(fns, params, loss_data, reduction)
+    if reduce is not None:
+        loss = reduce(loss)
+    init_loss, grad_vec, mvp_vec = _regularize(
+        config, ravel, params, loss,
+        acc._acc_grad(fns, params, grad_data, reduction, ravel, reduce),
+        acc._make_acc_mvp(fns, config, params, mvp_data, reduction, ravel,
+                          mvp_amortize, reduce),
+        reg,
     )
     loss_at = _loss_at(lambda p: acc.acc_loss(fns, p, loss_data, reduction),
                        reg, ravel, params, reduce)

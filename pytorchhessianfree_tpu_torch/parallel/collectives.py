@@ -59,16 +59,20 @@ Two semantics sit side by side:
   of :func:`gather_from_axis` would add every rank's alike cotangent in
   its reduce-scatter, as many times too large again.
 
-gloo takes only ``all_reduce`` and ``broadcast`` on CUDA tensors, so on
-gloo :func:`all_gather` (and so :func:`ppermute`) is an ``all_reduce`` of a
-zero-filled buffer into which each rank writes its block.  Adding zeros is
+gloo takes ``all_reduce``, ``broadcast`` and ``all_to_all_single`` on
+CUDA tensors (the last checked on torch 2.11 with an H100) but no
+all-gather, so on gloo :func:`all_gather` (and so :func:`ppermute`) is an
+``all_reduce`` of a zero-filled buffer into which each rank writes its
+block.  Adding zeros is
 exact, except that a ``-0.0`` block comes back as ``+0.0``.  On an axis of
 one rank every collective is the identity and calls nothing.
 
 A model reads the axes a step runs under through :func:`batch_axis`,
-:func:`sequence_axis`, :func:`expert_axis` and :func:`tensor_axis`; the
-steps set them with :func:`axes`.  No collective is wrapped in a
-``try``: a rank that fails leaves the others to the group's timeout.
+:func:`sequence_axis`, :func:`expert_axis`, :func:`tensor_axis` and
+:func:`tensor_role`, and reads every leaf it splits through
+:func:`leaf_block`; the steps set the axes with :func:`axes`.  No
+collective is wrapped in a ``try``: a rank that fails leaves the others to
+the group's timeout.
 """
 
 from __future__ import annotations
@@ -134,6 +138,23 @@ def _gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
         return _reduce(torch.cat([pieces[0], x, pieces[1]], dim), axis)
     return _all_gather_op(x.movedim(dim, 0).contiguous(), axis.size,
                           axis.group.group_name).movedim(0, dim)
+
+
+def all_to_all(chunks, counts, axis: Axis):
+    """A blocking all-to-all over ``axis`` (no autograd): ``chunks[r]``, a
+    1-D tensor, goes to rank ``r``; the 1-D chunk of ``counts[r]`` entries
+    that rank ``r`` sends here comes back at index ``r``.  This rank's own
+    chunk does not travel.  One ``all_to_all_single``, which gloo takes on
+    CUDA tensors too (module docstring)."""
+    me = axis.rank
+    sent = [0 if r == me else c.numel() for r, c in enumerate(chunks)]
+    got = [0 if r == me else counts[r] for r in range(axis.size)]
+    send = torch.cat([c for r, c in enumerate(chunks) if r != me])
+    recv = send.new_empty(sum(got))
+    dist.all_to_all_single(recv, send, got, sent, group=axis.group)
+    out = list(torch.split(recv, got))
+    out[me] = chunks[me]
+    return out
 
 
 @torch.library.custom_op("pytorchhessianfree_tpu_torch::all_gather",
@@ -409,6 +430,7 @@ class _Axes(NamedTuple):
     tensor: Optional[Axis] = None
     batch_reduction: str = "mean"
     tensor_leaves: frozenset = frozenset()
+    block_shapes: Optional[dict] = None
 
 
 _axes = _Axes()
@@ -417,7 +439,8 @@ _axes = _Axes()
 @contextlib.contextmanager
 def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
          expert: Optional[Axis] = None, tensor: Optional[Axis] = None,
-         batch_reduction: str = "mean", tensor_leaves=()):
+         batch_reduction: str = "mean", tensor_leaves=(),
+         block_shapes=None):
     """Run the body with these axes visible to the model's forward:
 
     - ``batch``: the batch's rows are split over it, batch statistics
@@ -432,12 +455,15 @@ def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
     - ``tensor``: a transformer block's heads and feed-forward columns are
       split over it, one replicated program whose sub-layers each end in a
       :func:`reduce_from_axis` (Megatron tensor parallelism,
-      :mod:`~..models.transformer`); of the leaves outside the blocks,
-      those named in ``tensor_leaves`` (``"embed"``, ``"pos"``,
-      ``"head"``) are split over it too."""
+      :mod:`~..models.transformer`): ``tensor_leaves`` names the roles
+      split over it (:func:`tensor_role`);
+    - ``block_shapes``: per role, the shapes of the blocks that the leaves
+      split over the tensor or the expert axis are passed as
+      (:func:`leaf_block`)."""
     global _axes
     saved, _axes = _axes, _Axes(batch, sequence, expert, tensor,
-                                batch_reduction, frozenset(tensor_leaves))
+                                batch_reduction, frozenset(tensor_leaves),
+                                block_shapes or {})
     try:
         yield
     finally:
@@ -473,10 +499,94 @@ def tensor_axis() -> Optional[Axis]:
     return _axes.tensor
 
 
-def tensor_leaf(name: str) -> Optional[Axis]:
-    """The tensor axis when the leaf ``name`` outside the blocks is split
-    over it (:func:`axes`' ``tensor_leaves``), else ``None``."""
-    return _axes.tensor if name in _axes.tensor_leaves else None
+_SUBLAYERS = ("attention", "mlp")
+
+
+def tensor_role(role: str, count: int) -> Optional[Axis]:
+    """The tensor axis when the forward splits ``role`` over it, else
+    ``None``: every rank computes the role whole.  The roles are a block's
+    ``"attention"`` (``count`` heads) and ``"mlp"`` (``count`` columns) and
+    the leaves outside the blocks (``"embed"``, ``"pos"``, ``"head"``;
+    ``count`` features or classes).  While the plan records a forward on
+    whole leaves (:func:`recording`), a block's role, or a leaf's named in
+    :func:`axes`' ``tensor_leaves``, splits when the axis divides its
+    ``count``.  In a step the leaves are blocks, whose widths no longer
+    tell, and ``tensor_leaves`` names exactly the roles that the
+    recording split."""
+    tp = _axes.tensor
+    if tp is None or tp.size == 1:
+        return None
+    if _recording is None:
+        return tp if role in _axes.tensor_leaves else None
+    named = role in _SUBLAYERS or role in _axes.tensor_leaves
+    split = named and count % tp.size == 0
+    _recording.roles.setdefault(role, set()).add(split)
+    return tp if split else None
+
+
+def leaf_block(leaf: torch.Tensor, axis: Axis, role: str, dim: int,
+               parts: int = 1) -> torch.Tensor:
+    """This rank's block of a parameter leaf that the forward splits over
+    ``axis`` along ``dim``: the leaf's ``parts`` equal groups along ``dim``
+    (the fused ``qkv``'s Q, K and V) each cut in ``axis.size`` blocks, and
+    the rank's block of each joined in order.  Every narrowing of a split
+    leaf goes through here, so that the plan learns each leaf's block from
+    the model: while it records a forward on whole leaves
+    (:func:`recording`), the leaf is narrowed and its block logged.  In a
+    step ``leaf`` is this block already and comes back unchanged; its
+    shape must be one that :func:`axes`' ``block_shapes`` lists for
+    ``role``, so that a whole leaf passed by mistake raises."""
+    if _recording is None:
+        shapes = (_axes.block_shapes or {}).get(role, ())
+        if tuple(leaf.shape) not in shapes:
+            raise ValueError(
+                f"{role}: expected this rank's block, of shape one of "
+                f"{sorted(shapes)}; got {tuple(leaf.shape)}")
+        return leaf
+    group = leaf.shape[dim] // parts
+    k = group // axis.size
+    starts = tuple(g * group + axis.rank * k for g in range(parts))
+    _recording.log(leaf, role, dim, starts, k)
+    pieces = [leaf.narrow(dim, s, k) for s in starts]
+    return pieces[0] if parts == 1 else torch.cat(pieces, dim)
+
+
+class _Recording:
+    """What :func:`leaf_block` and :func:`tensor_role` saw in a forward on
+    whole leaves: per leaf (its index among ``leaves``) the block
+    ``(dim, starts, length)`` it was read at, and per role whether it was
+    split."""
+
+    def __init__(self, leaves):
+        self.index = {id(t): i for i, t in enumerate(leaves)}
+        self.blocks, self.roles, self.leaf_roles = {}, {}, {}
+
+    def log(self, leaf, role, dim, starts, length):
+        i = self.index.get(id(leaf))
+        if i is None:
+            raise ValueError(
+                f"{role}: leaf_block was given a tensor that is not a "
+                "parameter leaf (a copy or a view of one)")
+        block = (dim, starts, length)
+        if self.blocks.setdefault(i, block) != block:
+            raise ValueError(
+                f"{role}: leaf {i} read at {self.blocks[i]} and at {block}")
+        self.leaf_roles[i] = role
+
+
+_recording: Optional[_Recording] = None
+
+
+@contextlib.contextmanager
+def recording(leaves):
+    """Record the blocks that a forward on the parameter ``leaves`` reads
+    (:class:`_Recording`, yielded)."""
+    global _recording
+    saved, _recording = _recording, _Recording(leaves)
+    try:
+        yield _recording
+    finally:
+        _recording = saved
 
 
 def batch_share(x: torch.Tensor) -> torch.Tensor:

@@ -113,6 +113,10 @@ class _Reduce:
         out = self.sum(t)
         return out / self.size if self.reduction == "mean" else out
 
+    def ravel(self, tree, ravel) -> torch.Tensor:
+        """The data term's ``tree`` raveled by ``ravel``, then reduced."""
+        return self(ravel.ravel(tree))
+
     def sample_squares(self, diag, fns, params, inputs, targets, ravel):
         """This rank's rows' sum of squared per-sample gradients through
         ``diag`` (``optimizer._diag``): a rank of the data axis holds each

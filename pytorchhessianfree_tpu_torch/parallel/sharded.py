@@ -21,16 +21,33 @@ port states what GSPMD chose freely:
   forced to ``"rows"``, as in the JAX package).  Each dot product reduces
   over the model axis; the CG kernel runs on the rank's block and its
   partial ``m`` and ``r.r`` are reduced together, two values per
-  iteration (``ops.cg``).  Each matvec gathers its direction (``n``),
-  runs the whole-vector matvec and keeps its block; each trial loss
-  gathers its step.  The chosen step is gathered once, and the line
-  search and the update run on whole vectors, alike on every rank.
+  iteration (``ops.cg``).
 - **Parameters are replicated unless a spec shards them.**  A sharded
   leaf (``param_specs``) is kept as this rank's block between steps
-  (:func:`~.mesh.shard_leaf`) and enters the step through an
-  ``all_gather`` (:func:`~.mesh.unshard_leaf`), so the step and its flat
-  space see whole weights.  The forward's compute on a gathered leaf is
-  replicated over the model axis, but for the Megatron layout below.
+  (:func:`~.mesh.shard_leaf`).  Inside the step every leaf that the
+  forward partitions is held as this rank's block of it, the block the
+  forward computes with, and every other leaf whole (gathered at the
+  step's entry through :func:`~.mesh.unshard_leaf` when a spec shards
+  it).  The plan learns the blocks from the model: a forward on whole
+  ``meta`` leaves, once per plan, records where each leaf is read
+  (:func:`~.collectives.leaf_block`) and which roles split; the step then
+  passes the blocks, names those roles and the blocks' shapes to the
+  forward (:func:`~.collectives.axes`' ``tensor_leaves`` and
+  ``block_shapes``), and a role split in some places only is computed
+  whole, its leaves whole.  The flat space reaches the
+  rank's local tree through :class:`~.layout.LocalLayout`: each matvec
+  lays its direction out to the local tree with one all-to-all over the
+  model axis and its product back to the rank's flat block with another,
+  a batched sweep lays out its ``[k, n / M]`` rows at once before its
+  ``vmap``, and the trial losses, the line search and the update run on
+  the rank's block.  No rank builds a whole ``[n]`` flat vector, nor a
+  whole partitioned leaf, but a ``loss_reg``: a function of the whole
+  tree, it sees the split leaves gathered
+  (:meth:`~.layout.LocalLayout.whole`).  Between steps the builders
+  return each sharded leaf as the spec's block (the JAX package's
+  layout); a block the forward reads otherwise (the fused ``qkv``'s
+  strided heads) is moved between the two in one all-to-all at the
+  step's entry and one at its exit.
 - **Megatron tensor parallelism splits the transformer blocks' work.**
   When every block of a list ``blocks`` of the parameter tree is in the
   Megatron layout of tests/test_sharded.py:316-331 in each sub-layer it
@@ -52,10 +69,10 @@ port states what GSPMD chose freely:
   ``P(model)`` computes the rank's ``C / M`` classes; the stream and the
   classes are gathered over the axis into whole values
   (:mod:`~..models.transformer`).  A leaf under ``P()`` is computed whole.
-  Still gathered and computed whole on every rank: a sub-layer or leaf
-  whose head count, ``d_ff``, ``d`` or class count the axis does not
-  divide; stacked blocks (:func:`~..models.transformer.stack_blocks`, the
-  pipeline's layout).
+  Still gathered at the step's entry and computed whole on every rank: a
+  sub-layer or leaf whose head count, ``d_ff``, ``d`` or class count the
+  axis does not divide; stacked blocks
+  (:func:`~..models.transformer.stack_blocks`, the pipeline's layout).
 - **Context and expert parallelism.**  Under ``batch_specs`` that split
   the sequence axis of the tokens over the model axis (context
   parallelism, CP), the decoders' attention gathers keys and values over
@@ -84,7 +101,8 @@ port states what GSPMD chose freely:
   ``copy_to_axis`` / ``reduce_from_axis`` follow one replicated program
   whose sub-layers all receive the same cotangent, which the joined
   program's EP combine and CP loss shares do not give.  Megatron-specced
-  weights are still kept as blocks between steps.
+  weights are still kept as blocks between steps, and gathered at the
+  step's entry.
 - **The data axis** reduces as in :mod:`.data_parallel` when a batch leaf
   is split over it, and the forward takes batch statistics over it
   (``models.resnet.batchnorm``) and routes the MoE LM's tokens over every
@@ -105,14 +123,14 @@ axis is a keyword (``reduction``), as in :mod:`.data_parallel`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from .. import accumulate as acc
 from ..config import HFConfig, precision_ctx
-from ..ops.precond import EMADiag, _reg_grad, _sample_grad_rows
+from ..ops.precond import EMADiag, _pairwise_sum, _reg_grad, _sample_grads
 from ..optimizer import (
     HFModelFns,
     _diag,
@@ -129,6 +147,7 @@ from ..utils.flatten import (
 )
 from . import collectives, distributed
 from .data_parallel import _Reduce
+from .layout import LocalLayout, move_blocks, narrow_block
 from .mesh import (
     ExpertSpec,
     PartitionSpec,
@@ -330,13 +349,13 @@ class _AxesReduce:
     """``reduce`` of the optimizer's steps over both axes: the model axis
     first (a sum of the ranks' shares, or the mean of their equal
     values), then the data axis (:class:`~.data_parallel._Reduce`).
-    :meth:`sum` and :attr:`size` are the data axis's; ``shard`` cuts a
-    whole vector to this rank's block (:meth:`sample_squares`)."""
+    Called on a value (a loss, a vector of trial losses); a data term's
+    tree goes to :meth:`ravel` instead, which combines the ranks' shares
+    in the local layout's all-to-all.  :meth:`sum` and :attr:`size` are
+    the data axis's."""
 
-    def __init__(self, data: Optional[_Reduce], model, mode: str,
-                 shard: ModelShard):
+    def __init__(self, data: Optional[_Reduce], model, mode: str):
         self.data, self.model, self.mode = data, model, mode
-        self.shard = shard
 
     def _model_rows(self, t: torch.Tensor) -> torch.Tensor:
         out = t.clone(memory_format=torch.contiguous_format)
@@ -348,6 +367,16 @@ class _AxesReduce:
             t = self._model_rows(t)
         return t if self.data is None else self.data(t)
 
+    def ravel(self, tree, ravel) -> torch.Tensor:
+        """This rank's flat block of the data term's local ``tree``
+        through the step's ``ravel``: under the joined program every
+        rank's share added (or averaged) at the entry's owner
+        (:meth:`~.layout.LocalLayout.ravel`), then reduced over the data
+        axis."""
+        flat = ravel.ravel(tree) if self.model is None \
+            else ravel.ravel(tree, combine=self.mode)
+        return flat if self.data is None else self.data(flat)
+
     @property
     def size(self):
         return 1 if self.data is None else self.data.size
@@ -358,35 +387,47 @@ class _AxesReduce:
     def sample_squares(self, diag, fns, params, inputs, targets, ravel):
         """This rank's block of ``sum_i (g_i + reg)^2`` over its rows
         (``optimizer._diag``), with ``g_i`` each sample's WHOLE gradient.
-        Under context or expert parallelism a rank's per-sample gradient
-        rows (``diag_EF``'s, whatever ``diag``) are its share of it, so
-        they are reduced over the model axis with the step's own mode in
-        chunks of at most :data:`_ROW_CHUNK_BYTES`; the regularizer's
-        gradient is then added once and the rank squares its block alone.
-        Without a model axis, the data axis's (``diag``'s) sum."""
+        Under context or expert parallelism a rank's per-sample gradients
+        (``diag_EF``'s, whatever ``diag``) are its share of it, so they are
+        combined over the model axis with the step's own mode as they are
+        laid out to the rank's block, in chunks of at most
+        :data:`_ROW_CHUNK_BYTES` of rows; the regularizer's gradient is
+        then added once and the rank squares its block alone.  Without a
+        model axis, the data axis's (``diag``'s) sum."""
         if self.model is None:
             return self.data.sample_squares(diag, fns, params, inputs,
                                             targets, ravel)
-        rows = _sample_grad_rows(fns.model_fn, fns.loss_outer, params,
-                                 inputs, targets, ravel)
+        leaves, treedef = tree_flatten(_sample_grads(
+            fns.model_fn, fns.loss_outer, params, inputs, targets))
         reg = _reg_grad(fns.loss_reg, params, ravel)
-        step = max(1, _ROW_CHUNK_BYTES
-                   // (rows.shape[1] * rows.element_size()))
+        step = max(1, _ROW_CHUNK_BYTES // (ravel.block * ravel.dtype.itemsize))
         out = 0
-        for i in range(0, rows.shape[0], step):
-            g = self._model_rows(rows[i:i + step])
+        for i in range(0, leaves[0].shape[0], step):
+            g = ravel.ravel(tree_unflatten(
+                treedef, [a[i:i + step] for a in leaves]), combine=self.mode)
             if reg is not None:
                 g = g + reg
-            out = out + torch.sum(self.shard(g) ** 2, dim=0)
+            out = out + _pairwise_sum(g ** 2)
         return out
+
+
+class _Entered(NamedTuple):
+    """What a builder's step runs on (:meth:`_Plan.enter`)."""
+
+    params: Any  # the local tree
+    batch: Any  # this rank's part of the batch
+    axes: dict  # of the forward (collectives.axes)
+    reduce: Optional[_AxesReduce]
+    ravel: Any  # the LocalLayout, or the TrainableRavel on one model rank
+    fns: HFModelFns  # a loss_reg seeing whole leaves
 
 
 class _Plan:
     """What the three builders share: the checks of the JAX package's
     ``_prepare``, the hooks, the parameter placement, and per batch the
-    axes of the forward and the reduction."""
+    axes of the forward, the reduction and the local layout."""
 
-    def __init__(self, config, ravel, mesh, data_axis, model_axis,
+    def __init__(self, fns, config, ravel, mesh, data_axis, model_axis,
                  param_specs, batch_specs, reduction, stacked):
         names = tuple(mesh.mesh_dim_names or ())
         if model_axis not in names:
@@ -407,7 +448,8 @@ class _Plan:
             config = dataclasses.replace(
                 config,
                 cg=dataclasses.replace(config.cg, buffer_layout="rows"))
-        self.config, self.ravel, self.mesh = config, ravel, mesh
+        self.fns, self.config, self.ravel, self.mesh = fns, config, ravel, \
+            mesh
         self.data_axis = data_axis if data_axis in names else None
         self.model_axis = model_axis
         self.model = collectives.mesh_axis(mesh, model_axis)
@@ -418,6 +460,7 @@ class _Plan:
         self.default_s = P(*lead, self.data_axis) if self.data_axis \
             else P()
         self._specs = None  # per parameter leaf, from the first params
+        self._layouts = {}  # per role of the model axis
 
     # -- parameters and state ------------------------------------------
 
@@ -433,18 +476,80 @@ class _Plan:
                 if self.megatron else frozenset()
         return self._specs
 
-    def whole_params(self, params):
-        self._resolve(params)
-        return unshard_params(params, self.param_specs, self.mesh,
-                              self.ravel)
+    def _spec_blocks(self, spec, shape):
+        """Every rank's block ``(dim, starts, length)`` of a leaf of
+        ``shape`` under ``spec`` when the spec splits one dimension over
+        the model axis alone, else ``None``."""
+        split = [(d, _names(part)) for d, part in enumerate(spec or ())
+                 if part is not None]
+        if len(split) != 1 or split[0][1] != (self.model_axis,):
+            return None
+        dim = split[0][0]
+        k = shape[dim] // self.model.size
+        return [(dim, (r * k,), k) for r in range(self.model.size)]
 
-    def shard_params(self, params):
-        specs = _spec_leaves(self._specs)
+    def _local(self, params, layout):
+        """The local tree of ``params`` (whole, or as a step returned them:
+        each sharded leaf the spec's block).  A leaf the step computes
+        whole is gathered; a block the spec holds otherwise than the
+        forward reads it (the fused ``qkv``'s strided heads) is moved in
+        one all-to-all for all such leaves."""
         leaves, treedef = tree_flatten(params)
-        return tree_unflatten(treedef, [
-            leaf if s is None else shard_leaf(leaf, s, self.mesh)
-            for leaf, s in zip(leaves, specs)
-        ])
+        out, moves = list(leaves), []
+        me = self.model.rank
+        for i, (x, spec) in enumerate(zip(leaves,
+                                          _spec_leaves(self._specs))):
+            shape = self.ravel._shapes[i]
+            compute = layout.blocks.get(i) if layout is not None else None
+            if tuple(x.shape) == shape:
+                out[i] = x if compute is None else narrow_block(x, compute)
+                continue
+            held = self._spec_blocks(spec, shape)
+            if compute is not None and held is not None \
+                    and held[me][0] == compute[0]:
+                if held[me] != compute:
+                    moves.append((i, held, layout.all_blocks))
+                continue
+            whole = unshard_leaf(x, spec, self.mesh)
+            out[i] = whole if compute is None \
+                else narrow_block(whole, compute)
+        return tree_unflatten(treedef, self._move(out, moves))
+
+    def _move(self, leaves, moves, back=False):
+        if not moves:
+            return leaves
+        index = [i for i, _, _ in moves]
+        held = [h for _, h, _ in moves]
+        compute = [[b[i] for b in blocks] for i, _, blocks in moves]
+        src, dst = (compute, held) if back else (held, compute)
+        moved = move_blocks([leaves[i] for i in index], src, dst, self.model)
+        for i, t in zip(index, moved):
+            leaves[i] = t
+        return leaves
+
+    def leave(self, params, ravel):
+        """The local tree ``params`` as the builders return it: each leaf
+        a spec shards as this rank's block of the spec (the JAX package's
+        layout), every other leaf whole."""
+        layout = ravel if isinstance(ravel, LocalLayout) else None
+        leaves, treedef = tree_flatten(params)
+        out, moves = list(leaves), []
+        me = self.model.rank
+        for i, (x, spec) in enumerate(zip(leaves,
+                                          _spec_leaves(self._specs))):
+            if spec is None:
+                continue
+            compute = layout.blocks.get(i) if layout is not None else None
+            if compute is None:
+                out[i] = shard_leaf(x, spec, self.mesh)
+                continue
+            held = self._spec_blocks(spec, self.ravel._shapes[i])
+            if held is not None and held[me][0] == compute[0]:
+                if held[me] != compute:
+                    moves.append((i, held, layout.all_blocks))
+                continue
+            out[i] = shard_leaf(layout.whole_leaf(i, x), spec, self.mesh)
+        return tree_unflatten(treedef, self._move(out, moves, back=True))
 
     def place_state(self, state):
         return state._replace(x0=self.shard(state.x0))
@@ -453,10 +558,69 @@ class _Plan:
         precond_diag, use = precond_arg(precond_diag, self.ravel)
         return self.shard(precond_diag) if use else None
 
+    # -- the local layout -------------------------------------------------
+
+    def _layout(self, axes, batch):
+        """``(LocalLayout, what the forward's axes add)`` for the forward's
+        ``axes``, recorded once per role of the model axis: the roles
+        split over the tensor axis and, per role, the shapes of the blocks
+        that the forward receives (:func:`~.collectives.axes`)."""
+        key = tuple(axes[k] is not None
+                    for k in ("sequence", "expert", "tensor"))
+        if key not in self._layouts:
+            if axes["tensor"] is None and axes["expert"] is None:
+                self._layouts[key] = (LocalLayout(
+                    self.ravel, self.model, [{}] * self.model.size), {})
+                return self._layouts[key]
+            blocks, roles, leaf_roles = self._record(axes, batch)
+            layout = LocalLayout(self.ravel, self.model, blocks)
+            shapes = {}
+            for i, role in leaf_roles.items():
+                shapes.setdefault(role, set()).add(layout.shapes[i])
+            self._layouts[key] = (layout, dict(tensor_leaves=roles,
+                                               block_shapes=shapes))
+        return self._layouts[key]
+
+    def _record(self, axes, batch):
+        """Every rank's block of each leaf and the roles split over the
+        tensor axis, from the model itself: its forward on whole ``meta``
+        leaves under ``axes`` with the model axis's rank set to each rank
+        in turn (:func:`~.collectives.recording`).  A role that the
+        forward splits in one place and not in another (blocks of
+        different widths) is computed whole, and its leaves stay whole.
+        Returns every rank's blocks, the split roles and each split leaf's
+        role."""
+        shapes, dtypes = self.ravel._shapes, self.ravel._dtypes
+        leaves = [torch.empty(s, dtype=d, device="meta")
+                  for s, d in zip(shapes, dtypes)]
+        params = tree_unflatten(self.ravel._treedef, leaves)
+        if self.stacked:
+            batch = tree_map(lambda a: a[0], batch)
+        batch = tree_map(lambda a: a.to("meta")
+                         if isinstance(a, torch.Tensor) else a, batch)
+        recs = []
+        for r in range(self.model.size):
+            ax = {k: v._replace(rank=r) if k in ("sequence", "expert",
+                                                 "tensor") and v is not None
+                  else v for k, v in axes.items()}
+            with torch.no_grad(), collectives.axes(**ax), \
+                    collectives.recording(leaves) as rec:
+                self.fns.data_loss(params, batch)
+            recs.append(rec)
+        seen = recs[0].roles
+        split = frozenset(role for role, s in seen.items() if s == {True})
+        keep = [i for i, role in recs[0].leaf_roles.items()
+                if seen.get(role, {True}) == {True}]
+        return ([{i: rec.blocks[i] for i in keep} for rec in recs], split,
+                {i: recs[0].leaf_roles[i] for i in keep})
+
     # -- per batch --------------------------------------------------------
 
-    def place(self, batch):
-        """``(local batch, axes of the forward, reduce)``."""
+    def enter(self, params, batch) -> _Entered:
+        """Everything one call runs on: the local tree of ``params``, this
+        rank's part of ``batch``, the forward's axes, the reduction, the
+        layout (``ravel``) and the model functions."""
+        self._resolve(params)
         specs = _batch_specs(batch, self.batch_specs, self.default_s,
                              self.stacked)
         seq_dims = _split_dims(specs, self.model_axis, self.stacked)
@@ -470,13 +634,6 @@ class _Plan:
         joined = context or self.experts  # the joined program's roles
         data_split = self.data_axis is not None and 0 in _split_dims(
             specs, self.data_axis, self.stacked)
-        data = _Reduce(self.mesh, self.data_axis, self.reduction) \
-            if data_split else None
-        model = self.model if joined and self.model.size > 1 else None
-        reduce = None
-        if data is not None or model is not None:
-            reduce = _AxesReduce(data, model, "sum" if context else "mean",
-                                 self.shard)
         # beside CP or EP the Megatron blocks are computed gathered
         tensor = self.megatron and not joined
         axes = dict(
@@ -490,7 +647,25 @@ class _Plan:
         )
         local = _place_batch(self.mesh, batch, self.batch_specs,
                              self.default_s, self.stacked)
-        return local, axes, reduce
+        # a data axis of one rank has nothing to reduce
+        data = _Reduce(self.mesh, self.data_axis, self.reduction) \
+            if data_split and axes["batch"].size > 1 else None
+        model = self.model if joined and self.model.size > 1 else None
+        fns, ravel, layout = self.fns, self.ravel, None
+        if self.model.size > 1:
+            layout, extra = self._layout(axes, local)
+            ravel = layout
+            axes.update(extra)
+            if layout.split:
+                if fns.loss_reg is not None:
+                    reg = fns.loss_reg
+                    fns = fns._replace(
+                        loss_reg=lambda p: reg(layout.whole(p)))
+        reduce = None
+        if data is not None or model is not None:
+            reduce = _AxesReduce(data, model, "sum" if context else "mean")
+        return _Entered(self._local(params, layout), local, axes, reduce,
+                        ravel, fns)
 
 
 def make_sharded_hf_step(
@@ -527,21 +702,20 @@ def make_sharded_hf_step(
     axis; ``donate`` is accepted and ignored, as in
     ``optimizer.make_hf_step``.
     """
-    plan = _Plan(config, ravel, mesh, data_axis, model_axis, param_specs,
-                 batch_specs, reduction, stacked=False)
+    plan = _Plan(fns, config, ravel, mesh, data_axis, model_axis,
+                 param_specs, batch_specs, reduction, stacked=False)
 
     def step(params, state, batch, precond_diag=None):
-        params = plan.whole_params(params)
-        batch, axes, reduce = plan.place(batch)
-        with collectives.axes(**axes):
+        e = plan.enter(params, batch)
+        with collectives.axes(**e.axes):
             params, state, stats = _hf_step(
-                params, plan.place_state(state), batch, fns=fns,
-                config=plan.config, ravel=ravel,
+                e.params, plan.place_state(state), e.batch, fns=e.fns,
+                config=plan.config, ravel=e.ravel,
                 precond_diag=plan.precond(precond_diag),
-                precond_exponent=precond_exponent, reduce=reduce,
+                precond_exponent=precond_exponent, reduce=e.reduce,
                 shard_vec=plan.shard, shard_buf=plan.shard,
             )
-        return plan.shard_params(params), state, stats
+        return plan.leave(params, e.ravel), state, stats
 
     return step
 
@@ -565,8 +739,8 @@ def make_sharded_hf_acc_step(
     over ``data_axis`` (N divisible by its size) and the CG space over
     ``model_axis``.  ``batch_specs`` describes ONE chunk's leaves; the
     stacked chunk axis is prepended unsplit."""
-    plan = _Plan(config, ravel, mesh, data_axis, model_axis, param_specs,
-                 batch_specs, reduction, stacked=True)
+    plan = _Plan(fns, config, ravel, mesh, data_axis, model_axis,
+                 param_specs, batch_specs, reduction, stacked=True)
 
     def step(params, state, loss_data, precond_diag=None):
         if not acc._is_stacked(loss_data):
@@ -575,18 +749,17 @@ def make_sharded_hf_acc_step(
                 "(xs [C, N, ...], ys [C, N, ...]); see "
                 "accumulate.pad_ragged_datalist for ragged chunks."
             )
-        params = plan.whole_params(params)
-        loss_data, axes, reduce = plan.place(loss_data)
-        with collectives.axes(**axes):
+        e = plan.enter(params, loss_data)
+        with collectives.axes(**e.axes):
             params, state, stats = _hf_acc_step(
-                params, plan.place_state(state), fns=fns,
-                config=plan.config, ravel=ravel, loss_data=loss_data,
+                e.params, plan.place_state(state), fns=e.fns,
+                config=plan.config, ravel=e.ravel, loss_data=e.batch,
                 reduction=reduction, precond_diag=plan.precond(precond_diag),
                 precond_exponent=precond_exponent,
-                mvp_amortize=mvp_amortize, reduce=reduce,
+                mvp_amortize=mvp_amortize, reduce=e.reduce,
                 shard_vec=plan.shard, shard_buf=plan.shard,
             )
-        return plan.shard_params(params), state, stats
+        return plan.leave(params, e.ravel), state, stats
 
     return step
 
@@ -626,36 +799,35 @@ def make_sharded_hf_train_loop(
                 "(per-sample gradients need model_fn + loss_outer)."
             )
     use_ema = precond_ema_decay is not None
-    plan = _Plan(config, ravel, mesh, data_axis, model_axis, param_specs,
-                 batch_specs, reduction, stacked=True)
+    plan = _Plan(fns, config, ravel, mesh, data_axis, model_axis,
+                 param_specs, batch_specs, reduction, stacked=True)
 
     def loop(params, state, batches, ema_state=None):
         if use_ema and ema_state is None:
             ema_state = EMADiag(precond_ema_decay)
-        params = plan.whole_params(params)
-        batches, axes, reduce = plan.place(batches)
-        state = plan.place_state(state)
-        num_steps = tree_flatten(batches)[0][0].shape[0]
+        e = plan.enter(params, batches)
+        params, state = e.params, plan.place_state(state)
+        num_steps = tree_flatten(e.batch)[0][0].shape[0]
         per_step = []
-        with collectives.axes(**axes):
+        with collectives.axes(**e.axes):
             for i in range(num_steps):
-                batch = tree_map(lambda a: a[i], batches)
+                batch = tree_map(lambda a: a[i], e.batch)
                 precond_diag = None
                 if use_ema:
                     inputs, targets = batch
                     with precision_ctx(plan.config):
-                        d = _diag(fns, params, inputs, targets,
-                                  plan.config.precond_reduction, ravel,
-                                  reduce)
+                        d = _diag(e.fns, params, inputs, targets,
+                                  plan.config.precond_reduction, e.ravel,
+                                  e.reduce)
                     precond_diag = ema_state.update(plan.shard(d))
                 params, state, stats = _hf_step(
-                    params, state, batch, fns=fns, config=plan.config,
-                    ravel=ravel, precond_diag=precond_diag,
-                    precond_exponent=precond_exponent, reduce=reduce,
+                    params, state, batch, fns=e.fns, config=plan.config,
+                    ravel=e.ravel, precond_diag=precond_diag,
+                    precond_exponent=precond_exponent, reduce=e.reduce,
                     shard_vec=plan.shard, shard_buf=plan.shard,
                 )
                 per_step.append(stats)
-        out = (plan.shard_params(params), state, _stack_stats(per_step))
+        out = (plan.leave(params, e.ravel), state, _stack_stats(per_step))
         return out + (ema_state,) if use_ema else out
 
     return loop

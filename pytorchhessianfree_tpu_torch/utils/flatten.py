@@ -217,6 +217,26 @@ class TrainableRavel:
         ]
         return tree_unflatten(self._treedef, out)
 
+    def add_rows(self, params: Any, rows: torch.Tensor) -> Any:
+        """One tree ``params + unravel(row)`` per row of ``rows`` ``[k,
+        dim]``, stacked along a leading axis (frozen leaves repeated): the
+        points that a batched sweep evaluates under one ``vmap``."""
+        leaves, _ = tree_flatten(params)
+        self._check_leaves(leaves)
+        k = rows.shape[0]
+        out = [
+            leaf + rows[:, self._offsets[i]:self._offsets[i + 1]].reshape(
+                k, *shape).to(dtype) if m
+            else leaf.expand(k, *leaf.shape)
+            for i, (leaf, shape, dtype, m) in enumerate(
+                zip(leaves, self._shapes, self._dtypes, self._mask))
+        ]
+        return tree_unflatten(self._treedef, out)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The dot product of two flat vectors."""
+        return torch.dot(a, b)
+
     def zeros(self) -> torch.Tensor:
         """A zero flat vector of the trainable dimension."""
         return torch.zeros(self.dim, dtype=self.dtype, device=self.device)

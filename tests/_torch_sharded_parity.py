@@ -45,7 +45,11 @@ from pytorchhessianfree_tpu.parallel import sharded as jsh
 from pytorchhessianfree_tpu.parallel.mesh import make_mesh as j_make_mesh
 from pytorchhessianfree_tpu_torch.convert import params_from_jax
 from pytorchhessianfree_tpu_torch.models import moe as tmoe
-from pytorchhessianfree_tpu_torch.parallel.mesh import PartitionSpec
+from pytorchhessianfree_tpu_torch.parallel import sharded as tsh
+from pytorchhessianfree_tpu_torch.parallel.mesh import (
+    ExpertSpec,
+    PartitionSpec,
+)
 
 F64 = jnp.float64
 # a draw of the MoE LM whose routing drops choices and whose second step
@@ -70,6 +74,7 @@ TOLS = {
     "ep_diag": (1e-8,), "mega_cp": (1e-8,), "mega_ep": (1e-8,),
     "ep_rows": (1e-8,), "mega_ep_rows": (1e-8,),
     "loop_tp_ema": (2e-6,),
+    "acc_tp": (1e-8,), "loop_tp_batched": (1e-8,), "precond_reg_tp": (1e-8,),
 }
 
 
@@ -113,9 +118,12 @@ def draw(case):
     if case == "acc":
         params, x, y = _mlp_draw(18)
         return params, [(x[:16], y[:16]), (x[16:], y[16:])]
-    if case in ("tp", "wrap_tp"):
+    if case in ("tp", "wrap_tp", "acc_tp"):
         params = j_init_transformer(num_classes=4, **_lm(0, 2))
         return params, [_enc_batch(60 + i) for i in range(2)]
+    if case in ("loop_tp_batched", "precond_reg_tp"):
+        params = j_init_transformer(num_classes=4, **_lm(0, 2))
+        return params, [_enc_batch(60)]
     if case == "cp":
         return j_init_decoder(**_lm(0, 2)), [_tokens(70 + i)
                                              for i in range(2)]
@@ -175,10 +183,11 @@ def j_model(kind):
     _, _, config = worker.model(kind)
     if kind == "mlp":
         fns = jhf.HFModelFns(model_fn=j_mlp, loss_outer=j_mse)
-    elif kind == "enc":
+    elif kind in ("enc", "enc_reg"):
         fns = jhf.HFModelFns(
             model_fn=lambda p, x: j_transformer(p, x, n_heads=4),
-            loss_outer=j_xent)
+            loss_outer=j_xent,
+            loss_reg=j_cumsum_reg if kind == "enc_reg" else None)
     elif kind.startswith("dec"):
         onehot = kind == "dec_onehot"
         fns = jhf.HFModelFns(
@@ -197,12 +206,20 @@ def j_model(kind):
     return fns
 
 
+def j_cumsum_reg(params):
+    """``worker.cumsum_reg`` in JAX."""
+    return 1e-3 * sum(jnp.mean(jnp.cumsum(t.reshape(-1)) ** 2)
+                      for t in jax.tree_util.tree_leaves(params))
+
+
 def j_config(case):
     c = worker.config_for(case)
     return jhf.HFConfig(
         curvature_opt=c.curvature_opt, damping=c.damping,
         cg_max_iter=c.cg_max_iter, rich_stats=c.rich_stats,
-        cg=jhf.CGConfig(store_dtype=c.cg.store_dtype), precond=c.precond)
+        cg=jhf.CGConfig(store_dtype=c.cg.store_dtype), precond=c.precond,
+        backtracking_mode=c.backtracking_mode,
+        linesearch=jhf.LineSearchConfig(mode=c.linesearch.mode))
 
 
 _jax_runs = {}
@@ -243,8 +260,8 @@ def _jax_run(case, world):
         step = jsh.make_sharded_hf_step(fns, config, ravel, mesh, **kw)
         diag = None
         if spec.get("precond"):
-            diag = jhf.diag_EF(j_mlp, j_mse, params, *batches[0], "mean",
-                               ravel)
+            diag = jhf.diag_EF(fns.model_fn, fns.loss_outer, params,
+                               *batches[0], "mean", ravel)
         ps, ss, p = [], [], params
         for batch in batches:
             p, state, stats = step(p, state, batch, precond_diag=diag)
@@ -434,3 +451,43 @@ def check(results, case):
     for r in ranks[1:]:
         np.testing.assert_array_equal(r[f"{case}/params"],
                                       r0[f"{case}/params"])
+
+
+def check_blocks(results, case, partitioned):
+    """A probed run of ``case`` (``worker.PROBED``): on every rank, every
+    forward of the partitioned program received each leaf that
+    ``partitioned(spec)`` names as the spec's block of it (the other
+    leaves whole), the local tree held exactly the whole tree's entries
+    less the other ranks' shares of the partitioned leaves, and no op of
+    the step output a whole flat vector."""
+    spec = worker.CASES[case]
+    template = worker.model(spec["model"])[0]
+    specs = tsh._spec_leaves(tsh._param_shardings(None, template,
+                                                  spec["param_specs"]))
+    want, local = [], 0
+    for leaf, s in zip(jax.tree_util.tree_leaves(draw(case)[0]), specs):
+        shape = list(leaf.shape)
+        split = partitioned(s)
+        if split:
+            for dim, part in enumerate(s):
+                if part is not None:
+                    shape[dim] //= 2
+        want.append(tuple(shape))
+        local += leaf.size // 2 if split else leaf.size
+    _, ranks = results
+    for r in ranks:
+        seen = [eval(x) for x in r[f"{case}/probe_shapes"]]
+        assert seen == [want], (case, seen, want)
+        assert sum(int(np.prod(s)) for s in seen[0]) == local
+        assert r[f"{case}/probe_flat"] == 0, case
+
+
+def tensor_split(spec):
+    """A leaf that the Megatron program partitions: its spec splits it over
+    the model axis."""
+    return any(part is not None for part in spec or ())
+
+
+def expert_split(spec):
+    """A leaf that expert parallelism partitions: an ExpertSpec's."""
+    return isinstance(spec, ExpertSpec)

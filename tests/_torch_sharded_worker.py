@@ -20,6 +20,8 @@ tensor parallelism, and on the card under CP + EP, against one process's
 values in the rank itself.  It imports no JAX.
 """
 
+import contextlib
+import dataclasses
 import os
 import sys
 
@@ -117,7 +119,10 @@ CASES = {
                     param_specs=MEGATRON),
     # where the model axis's roles meet, and the empirical-Fisher diagonal
     # under them (faults F3 and F4)
-    "loop_cp_ema": dict(model="dec1", steps=2, builder="loop",
+    # a 10-iteration solve: at dec1's 15 the trajectory moves by 1.3e-8
+    # and step 2's diagonal by 2.7e-9 when one process's squares are
+    # summed in another order, past the diagonal's 1e-10
+    "loop_cp_ema": dict(model="dec1", steps=2, builder="loop", cg=10,
                         batch_specs=P(None, "model"), ema=0.9),
     # XLA's SPMD partitioner aborts on the JAX package's MoE LM with a
     # split sequence on a mesh whose data axis is 1 or absent ("Check
@@ -149,9 +154,34 @@ CASES = {
     # share of it
     "mega_ep_rows": dict(model="moe_aux_sum", steps=1,
                          param_specs=MEGATRON_MOE, reduction="sum"),
-    "loop_tp_ema": dict(model="enc", steps=1, builder="loop",
+    # the Megatron encoder's paths, each on a fixed 10-iteration solve
+    # (tp's 16-23 iterations reach Martens' stop and the chaos of a long
+    # solve): the train loop with the EMA diagonal; the accumulated step;
+    # the train loop with batched backtracking and line search, the
+    # in-step empirical-Fisher diagonal and a loss_reg (which sees the
+    # split leaves gathered, inside the sweep's vmap too); a
+    # preconditioned step whose loss has the loss_reg
+    "loop_tp_ema": dict(model="enc", steps=1, builder="loop", cg=10,
                         param_specs=MEGATRON, ema=0.9),
+    "acc_tp": dict(model="enc", steps=1, builder="acc", cg=10,
+                   param_specs=MEGATRON),
+    "loop_tp_batched": dict(model="enc_reg", steps=1, builder="loop",
+                            cg=10, param_specs=MEGATRON, batched=True,
+                            diag_ef=True),
+    "precond_reg_tp": dict(model="enc_reg", steps=1, precond=True, cg=10,
+                           param_specs=MEGATRON),
 }
+# the runs whose steps a StepProbe watches: what the model function
+# receives, whole flat vectors (tests/test_torch_sharded_*.py)
+PROBED = ("tp", "wrap_tp", "loop_tp_ema", "ep", "ep_rows", "moe_cp_ep",
+          "mega_ep_rows")
+
+
+def cumsum_reg(params):
+    """An order-sensitive ``loss_reg``: a gathered leaf whose blocks came
+    back in another order would change it."""
+    return 1e-3 * sum(torch.mean(torch.cumsum(t.reshape(-1), 0) ** 2)
+                      for t in tree_flatten(params)[0])
 
 
 def model(kind):
@@ -164,12 +194,13 @@ def model(kind):
         return (init_mlp(g, sizes=SIZES, dtype=f64),
                 thf.HFModelFns(model_fn=mlp_apply, loss_outer=mse_loss),
                 thf.HFConfig(damping=0.5, cg_max_iter=50))
-    if kind == "enc":
+    if kind in ("enc", "enc_reg"):
         return (init_transformer(g, n_layers=2, num_classes=4, dtype=f64,
                                  **TINY_LM),
                 thf.HFModelFns(
                     model_fn=lambda p, x: transformer_apply(p, x, n_heads=4),
-                    loss_outer=cross_entropy_loss),
+                    loss_outer=cross_entropy_loss,
+                    loss_reg=cumsum_reg if kind == "enc_reg" else None),
                 thf.HFConfig(damping=1.0, cg_max_iter=25))
     if kind.startswith("dec"):
         layers = 1 if kind == "dec1" else 2
@@ -222,6 +253,10 @@ def config_for(case):
         config = thf.HFConfig(damping=config.damping,
                               cg_max_iter=config.cg_max_iter,
                               precond="diag_ef")
+    if spec.get("batched"):
+        config = dataclasses.replace(
+            config, backtracking_mode="batched",
+            linesearch=thf.LineSearchConfig(mode="batched"))
     return config
 
 
@@ -266,17 +301,22 @@ def run_case(case, z, meshes, out):
     specs = spec.get("param_specs")
     builder = spec.get("builder", "step")
     state = thf.init_state(ravel, config)
+    probe = StepProbe(ravel.dim) if case in PROBED \
+        else contextlib.nullcontext()
+    if case in PROBED:
+        fns = probe.watch(fns)
     if builder == "step":
         step = sharded.make_sharded_hf_step(
             fns, config, ravel, mesh,
             reduction=spec.get("reduction", "mean"), **kw)
         diag = None
         if spec.get("precond"):
-            diag = thf.diag_EF(mlp_apply, mse_loss, params, *batches[0],
-                               "mean", ravel)
+            diag = thf.diag_EF(fns.model_fn, fns.loss_outer, params,
+                               *batches[0], "mean", ravel)
         p, ps, ss = params, [], []
-        for batch in batches:
-            p, state, stats = step(p, state, batch, precond_diag=diag)
+        for i, batch in enumerate(batches):
+            with probe if i == 0 else contextlib.nullcontext():
+                p, state, stats = step(p, state, batch, precond_diag=diag)
             ps.append(sharded.unshard_params(p, specs, mesh, ravel))
             ss.append(stats)
         record(out, case, ravel, ps, ss)
@@ -289,12 +329,14 @@ def run_case(case, z, meshes, out):
         step = sharded.make_sharded_hf_acc_step(fns, config, ravel, mesh,
                                                 **kw)
         p, state, stats = step(params, state, stacked(batches))
-        record(out, case, ravel, [p], [stats])
+        record(out, case, ravel, [sharded.unshard_params(p, specs, mesh,
+                                                         ravel)], [stats])
     elif builder == "loop":
         loop = sharded.make_sharded_hf_train_loop(
             fns, config, ravel, mesh, precond_ema_decay=spec.get("ema"),
             **kw)
-        res = loop(params, state, stacked(batches))
+        with probe:
+            res = loop(params, state, stacked(batches))
         p = sharded.unshard_params(res[0], specs, mesh, ravel)
         stats = res[2]
         out[f"{case}/params"] = ravel.ravel(p).numpy()[None]
@@ -306,16 +348,21 @@ def run_case(case, z, meshes, out):
                 ravel.dim).gather(res[3].diag).numpy()
         out[f"{case}/x0_shape"] = np.array(res[1].x0.shape)
     else:
-        wrapper_case(case, spec, params, batches, fns, config, mesh, out)
+        wrapper_case(case, spec, params, batches, fns, config, mesh, out,
+                     probe)
+    if case in PROBED:
+        probe.record(out, case)
 
 
-def wrapper_calls(opt, batches, precond=True):
+def wrapper_calls(opt, batches, precond=True, probe=None):
     """The calls of tests/test_sharded.py's wrapper tests, here and in the
-    test: steps (the whole parameters after each), a diagonal, an
-    accumulated step."""
+    test: steps (the whole parameters after each; ``probe`` watching the
+    first), a diagonal, an accumulated step."""
     rows = []
-    for batch in batches:
-        opt.step(batch)
+    for i, batch in enumerate(batches):
+        first = probe is not None and i == 0
+        with probe if first else contextlib.nullcontext():
+            opt.step(batch)
         rows.append(np.asarray(opt.ravel.ravel(opt.params)))
     res = {"params": np.stack(rows),
            "num_cg_iters": np.array(opt.history["num_cg_iters"])}
@@ -328,13 +375,15 @@ def wrapper_calls(opt, batches, precond=True):
     return res
 
 
-def wrapper_case(case, spec, params, batches, fns, config, mesh, out):
+def wrapper_case(case, spec, params, batches, fns, config, mesh, out,
+                 probe=None):
     opt = thf.HessianFree(
         params, model_fn=fns.model_fn, loss_outer=fns.loss_outer,
         config=config, pad_to_multiple=8, mesh=mesh,
         param_specs=spec.get("param_specs"),
         batch_specs=spec.get("batch_specs"))
-    res = wrapper_calls(opt, batches, precond=case == "wrap")
+    res = wrapper_calls(opt, batches, precond=case == "wrap",
+                        probe=probe if case in PROBED else None)
     for k, v in res.items():
         out[f"{case}/{k}"] = v
     out[f"{case}/x0_shape"] = np.array(opt.state.x0.shape)
@@ -443,16 +492,16 @@ def megatron_specs(params):
             for key, leaf in params.items()}
 
 
-def megatron_axes(params, mesh, batch, specs=None):
-    """The forward's axes that the sharded step's plan picks for ``specs``
-    (:func:`megatron_specs` by default) with the rows replicated: the
-    model axis as the tensor axis, with the embeddings and the head it
-    splits."""
-    plan = sharded._Plan(thf.HFConfig(), thf.TrainableRavel(
+def megatron_plan(fns, params, mesh, batch, specs=None, config=None):
+    """What the sharded step runs on for ``specs`` (:func:`megatron_specs`
+    by default) with the rows replicated (``sharded._Plan.enter``): the
+    local tree (each partitioned leaf this rank's block), the forward's
+    axes (the model axis as the tensor axis, with the embeddings and the
+    head it splits), the layout and the plan's ``ModelShard``."""
+    plan = sharded._Plan(fns, config or thf.HFConfig(), thf.TrainableRavel(
         params, pad_to_multiple=8), mesh, "data", "model",
         specs or megatron_specs(params), P(), "mean", stacked=False)
-    plan.whole_params(params)
-    return plan.place(batch)[1]
+    return plan.enter(params, batch), plan.shard
 
 
 def tiny_megatron_model(kind, dtype=torch.float64, device="cpu"):
@@ -497,15 +546,62 @@ def tiny_megatron_model(kind, dtype=torch.float64, device="cpu"):
     return params, fns, (x.to(device), y.to(device)), bool(kw.get("remat"))
 
 
-def megatron_values(fns, params, batch, curvature, remat, axes, v):
-    """Loss, flat gradient and one curvature matvec (GGN or Hessian) under
-    the forward's ``axes`` (``{}``: one process's)."""
-    ravel = thf.TrainableRavel(params, pad_to_multiple=8)
+def megatron_values(fns, params, batch, curvature, remat, v, mesh=None,
+                    probe=None):
+    """Loss, flat gradient and one curvature matvec (GGN or Hessian): with
+    ``mesh``, of the partitioned step's local tree under its axes (each
+    rank's blocks, gathered whole here to compare), else one process's.
+    ``probe`` (a :class:`StepProbe`) watches the partitioned run."""
     config = thf.HFConfig(damping=1.0, curvature_opt=curvature, remat=remat)
-    with collectives.axes(**axes):
+    if mesh is None:
+        ravel = thf.TrainableRavel(params, pad_to_multiple=8)
         loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
             fns, config, ravel, params, batch)
         return [loss.reshape(1), grad, mvp(v)]
+    if probe is not None:
+        fns = probe.watch(fns)
+    e, shard = megatron_plan(fns, params, mesh, batch, config=config)
+    with collectives.axes(**e.axes), (probe or contextlib.nullcontext()):
+        loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
+            e.fns, config, e.ravel, e.params, e.batch, e.reduce)
+        product = mvp(shard(v))
+    return [loss.reshape(1), shard.gather(grad), shard.gather(product)]
+
+
+class StepProbe(TorchDispatchMode):
+    """What a sharded step computes with: the parameter shapes its model
+    function receives in the partitioned program (:meth:`watch`: under a
+    tensor or an expert axis, the plan's recording forward on ``meta``
+    leaves aside) and the ops that output a 1-D tensor of ``n`` entries,
+    a whole flat vector."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n, self.flat, self.shapes = n, 0, set()
+
+    def watch(self, fns):
+        model_fn = fns.model_fn
+
+        def watched(p, x):
+            leaves = tree_flatten(p)[0]
+            partitioned = collectives.tensor_axis() is not None \
+                or collectives.expert_axis() is not None
+            if partitioned and not leaves[0].is_meta:
+                self.shapes.add(repr([tuple(t.shape) for t in leaves]))
+            return model_fn(p, x)
+
+        return fns._replace(model_fn=watched)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        result = func(*args, **(kwargs or {}))
+        if isinstance(result, torch.Tensor) and result.dim() == 1 \
+                and result.shape[0] == self.n:
+            self.flat += 1
+        return result
+
+    def record(self, out, key):
+        out[f"{key}/probe_shapes"] = np.array(sorted(self.shapes))
+        out[f"{key}/probe_flat"] = np.array(self.flat)
 
 
 # the kinds each model-axis group of ranks checks, of about equal cost
@@ -532,23 +628,24 @@ def megatron_derivatives(mesh, out):
     checks = []
     for kind in MEGATRON_GROUPS[mesh.get_local_rank("data")]:
         params, fns, batch, remat = tiny_megatron_model(kind)
-        axes = megatron_axes(params, mesh, batch)
-        v = torch.randn(thf.TrainableRavel(params, pad_to_multiple=8).dim,
-                        dtype=torch.float64,
+        n = thf.TrainableRavel(params, pad_to_multiple=8).dim
+        v = torch.randn(n, dtype=torch.float64,
                         generator=torch.Generator().manual_seed(3))
         for curvature in megatron_curvatures(kind):
             key = f"mega/{kind}/{curvature}"
             args = (fns, params, batch, curvature, remat)
             checks.append((key, args, v))
             _tp_sums[0] = _tp_gathers[0] = 0
-            got = megatron_values(*args, axes, v)
+            probe = StepProbe(n)
+            got = megatron_values(*args, v, mesh, probe)
+            probe.record(out, key)
             out[f"{key}/sums"] = np.array(_tp_sums[0])
             out[f"{key}/gathers"] = np.array(_tp_gathers[0])
             for name, value in zip(("loss", "grad", "mvp"), got):
                 out[f"{key}/{name}"] = value.numpy()
     for key, args, v in checks[axis.rank::axis.size]:
         for name, value in zip(("loss", "grad", "mvp"),
-                               megatron_values(*args, {}, v)):
+                               megatron_values(*args, v)):
             out[f"{key}/{name}_one"] = value.numpy()
 
 
@@ -577,32 +674,34 @@ def megatron_split(mesh, out):
 
     from pytorchhessianfree_tpu_torch.models.transformer import _block
 
-    axis = collectives.mesh_axis(mesh, "model")
     params, fns, batch, _ = tiny_megatron_model("enc")
     dec, dec_fns, dec_batch, _ = tiny_megatron_model("dec")
     h = torch.randn(16, 8, 16, dtype=torch.float64,
                     generator=torch.Generator().manual_seed(5))
-    blk = params["blocks"][0]
     whole_embed = dict(megatron_specs(dec), embed=P(), pos=P())
-    plans = {"tp": (megatron_axes(params, mesh, batch),
-                    megatron_axes(dec, mesh, dec_batch),
-                    megatron_axes(dec, mesh, dec_batch, whole_embed)),
-             "one": ({}, {}, {})}
-    for name, (axes, dec_axes, whole_axes) in plans.items():
-        with collectives.axes(tensor=axes.get("tensor")):
+    enc_e = megatron_plan(fns, params, mesh, batch)[0]
+    plans = {"tp": (enc_e, megatron_plan(dec_fns, dec, mesh, dec_batch)[0],
+                    megatron_plan(dec_fns, dec, mesh, dec_batch,
+                                  whole_embed)[0]),
+             "one": ((params, {}), (dec, {}), (dec, {}))}
+    for name, (enc, dec_tp, whole) in plans.items():
+        enc, dec_tp, whole = ((e.params, e.axes)
+                              if isinstance(e, sharded._Entered) else e
+                              for e in (enc, dec_tp, whole))
+        with collectives.axes(**enc[1]):
+            blk = enc[0]["blocks"][0]  # this rank's blocks under "tp"
             with FlopCounterMode(display=False) as block_flops:
                 _block(blk, h, n_heads=4)
             with _Shapes() as shapes:
                 _block(blk, h, n_heads=4)
-        with collectives.axes(**axes), \
-                FlopCounterMode(display=False) as forward_flops:
-            fns.model_fn(params, batch[0])
-        with collectives.axes(**dec_axes), \
+            with FlopCounterMode(display=False) as forward_flops:
+                fns.model_fn(enc[0], batch[0])
+        with collectives.axes(**dec_tp[1]), \
                 FlopCounterMode(display=False) as dec_flops:
-            dec_fns.model_fn(dec, dec_batch[0])
-        with collectives.axes(**whole_axes), \
+            dec_fns.model_fn(dec_tp[0], dec_batch[0])
+        with collectives.axes(**whole[1]), \
                 FlopCounterMode(display=False) as whole_flops:
-            dec_fns.model_fn(dec, dec_batch[0])
+            dec_fns.model_fn(whole[0], dec_batch[0])
         out[f"split/{name}/block_flops"] = np.array(
             block_flops.get_total_flops())
         out[f"split/{name}/forward_flops"] = np.array(
@@ -622,11 +721,12 @@ def megatron_on_device(mesh, out):
                                                 device)
     n = thf.TrainableRavel(params, pad_to_multiple=8).dim
     v = torch.randn(n, generator=torch.Generator().manual_seed(3)).to(device)
-    for name, ax in (("tp", megatron_axes(params, mesh, batch)),
-                     ("one", {})):
+    e = megatron_plan(fns, params, mesh, batch)[0]
+    for name, (p, ax, m) in (("tp", (e.params, e.axes, mesh)),
+                             ("one", (params, {}, None))):
         with collectives.axes(**ax):
-            logits = fns.model_fn(params, batch[0])
-        _, _, mv = megatron_values(fns, params, batch, "ggn", False, ax, v)
+            logits = fns.model_fn(p, batch[0])
+        _, _, mv = megatron_values(fns, params, batch, "ggn", False, v, m)
         out[f"card/{name}/logits"] = logits.cpu().numpy()
         out[f"card/{name}/mvp"] = mv.cpu().numpy()
 
@@ -646,19 +746,21 @@ def joined_on_device(mesh, out):
     v = torch.randn(ravel.dim, generator=torch.Generator().manual_seed(3))
     v = v.to(device)
     spec = CASES["moe_cp_ep"]
-    plan = sharded._Plan(config, ravel, mesh, "data", "model",
+    plan = sharded._Plan(fns, config, ravel, mesh, "data", "model",
                          spec["param_specs"], spec["batch_specs"], "mean",
                          stacked=False)
-    plan.whole_params(params)
-    local, axes, reduce = plan.place(batch)
-    for name, (b, ax, red) in (("joined", (local, axes, reduce)),
-                               ("one", (batch, {}, None))):
-        with collectives.axes(**ax):
-            loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
-                fns, config, ravel, params, b, red)
-            for key, value in zip(("loss", "grad", "mvp"),
-                                  (loss.reshape(1), grad, mvp(v))):
-                out[f"card_moe/{name}/{key}"] = value.cpu().numpy()
+    e = plan.enter(params, batch)
+    with collectives.axes(**e.axes):
+        loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
+            e.fns, config, e.ravel, e.params, e.batch, e.reduce)
+        values = (loss.reshape(1), plan.shard.gather(grad),
+                  plan.shard.gather(mvp(plan.shard(v))))
+    loss, grad, mvp = thf.optimizer._build_matvec_and_grad(
+        fns, config, ravel, params, batch)
+    for name, got in (("joined", values),
+                      ("one", (loss.reshape(1), grad, mvp(v)))):
+        for key, value in zip(("loss", "grad", "mvp"), got):
+            out[f"card_moe/{name}/{key}"] = value.cpu().numpy()
 
 
 MEGATRON_SUITES = {"mega": megatron_derivatives, "split": megatron_split,

@@ -25,6 +25,11 @@ own inputs (``_torch_collectives_worker.expected``), for:
   ranks' alike cotangents.
 
 tests/test_torch_cuda.py runs the same checks on the card.
+
+In one process: inside a sharded step :func:`collectives.leaf_block`
+returns a split leaf of a recorded block shape as it is and refuses a
+whole leaf, and :func:`collectives.tensor_role` splits exactly the roles
+that the plan recorded, whatever the widths at hand.
 """
 
 import numpy as np
@@ -97,3 +102,32 @@ def test_one_rank_calls_the_functions_alike(tmp_path):
     procs = dp_worker.spawn_script(worker.__file__, [str(tmp_path)], 1)
     check((dp_worker.collect(procs, tmp_path), worker.expected(1)),
           worker.expected(1).keys())
+
+
+def test_leaf_block_in_a_step_takes_only_the_recorded_blocks():
+    """A whole leaf passed where the step expects this rank's block would
+    be summed over every rank: it raises."""
+    from pytorchhessianfree_tpu_torch.parallel import collectives
+
+    tp = collectives.Axis(None, 2, 1)
+    block = torch.zeros(16, 8)
+    with collectives.axes(tensor=tp, tensor_leaves={"mlp"},
+                          block_shapes={"mlp": {(16, 8)}}):
+        assert collectives.leaf_block(block, tp, "mlp", 0) is block
+        with pytest.raises(ValueError, match="this rank's block"):
+            collectives.leaf_block(torch.zeros(32, 8), tp, "mlp", 0)
+        with pytest.raises(ValueError, match="this rank's block"):
+            collectives.leaf_block(block, tp, "attention", 0)
+
+
+def test_tensor_role_in_a_step_is_the_recorded_roles():
+    """In a step only the recorded roles split: a role left out (its
+    widths split in some blocks only, say) is computed whole even where
+    the axis divides its count."""
+    from pytorchhessianfree_tpu_torch.parallel import collectives
+
+    tp = collectives.Axis(None, 2, 0)
+    with collectives.axes(tensor=tp, tensor_leaves={"attention"}):
+        assert collectives.tensor_role("attention", 3) is tp
+        assert collectives.tensor_role("mlp", 32) is None
+        assert collectives.tensor_role("embed", 16) is None

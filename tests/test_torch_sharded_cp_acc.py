@@ -6,8 +6,9 @@ the tokens' sequence axis split over the model axis (``batch_specs=P(None,
 "model")``) through ``make_sharded_hf_acc_step`` (``acc_cp``) and
 ``make_sharded_hf_train_loop`` (``loop_cp``), the stacked chunk or time
 axis prepended unsplit; and the loop with the EMA empirical-Fisher
-diagonal (``loop_cp_ema``, decay 0.9), each sample's gradient made whole
-over the model axis before it is squared (fault F3).
+diagonal (``loop_cp_ema``, decay 0.9, on 10-iteration solves), each
+sample's gradient made whole over the model axis before it is squared
+(fault F3).
 
 Each case against the JAX package's ``make_sharded_hf_*`` on
 a (2, 2) mesh and the port's one-process step

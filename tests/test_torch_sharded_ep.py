@@ -16,6 +16,10 @@ bit.  At the same bounds, where the model axis's roles meet:
 - ``moe_cp_ep``: the same under ``moe_param_specs`` too (CP + EP);
 - ``ep_diag``: EP with ``HFConfig(precond="diag_ef")``, 1 step: the
   in-step empirical-Fisher diagonal of whole per-sample gradients (F3).
+
+Inside the steps of ``ep`` and ``moe_cp_ep`` each rank holds its 2
+experts' leaves alone: the model function receives them, the local tree
+holds exactly their entries, and no op builds a whole flat vector.
 """
 
 import pytest
@@ -59,3 +63,11 @@ def test_expert_blocks_are_kept_sharded(two_ranks):
     _, ranks = two_ranks
     assert "(2, 16, 32)" in str(ranks[0]["ep/shapes"])
     assert "(4, 16, 32)" not in str(ranks[0]["ep/shapes"])
+
+
+@pytest.mark.parametrize("case", ["ep", "moe_cp_ep"])
+def test_step_keeps_expert_blocks(two_ranks, case):
+    """Inside the step each rank holds 2 of the 4 experts' leaves and the
+    rest whole: the model function receives them so, the local tree holds
+    exactly that many entries, and no op builds a whole flat vector."""
+    parity.check_blocks(two_ranks, case, parity.expert_split)

@@ -11,9 +11,10 @@ M`` feed-forward columns, with one sum over the axis per sub-layer
   tests/test_torch_sharded_tp.py, which tests/_torch_sharded_parity.py
   explains), the same CG iterations, the four ranks bit for bit;
 - loss, gradient, GGN and Hessian matvecs of the partitioned forward
-  under the axes the step's plan picks for the Megatron specs (the
-  blocks, and the embeddings, ``pos`` and the head split by feature or
-  class) within 1e-10 of one process's: the encoder, the causal decoder
+  on the local tree and under the axes the step's plan picks for the
+  Megatron specs (the blocks, and the embeddings, ``pos`` and the head
+  split by feature or class; the rank's blocks of the gradient and the
+  products gathered to compare) within 1e-10 of one process's: the encoder, the causal decoder
   LM with full and chunked attention, rematerialized blocks (the
   one-shot matvecs) and the MoE LM's attention; a head count the axis
   does not divide computes that sub-layer whole and gives the same
@@ -40,8 +41,14 @@ M`` feed-forward columns, with one sum over the axis per sub-layer
   whole program and the port's one process; the draw drops choices by
   capacity;
 - ``loop_tp_ema``: the Megatron encoder's train loop with the EMA
-  empirical-Fisher diagonal (0.9), 1 step at ``tp``'s first bound 2e-6,
-  the diagonal at 1e-10, the blocks partitioned.
+  empirical-Fisher diagonal (0.9), 1 step on a fixed 10-iteration solve
+  at ``tp``'s first bound 2e-6, the diagonal at 1e-10, the blocks
+  partitioned;
+- inside the steps of ``wrap_tp``, ``loop_tp_ema``, ``ep_rows`` and
+  ``mega_ep_rows`` and of the derivative runs, each rank holds every
+  partitioned leaf as its block: the model function receives the blocks,
+  the local tree holds exactly their entries, and no op builds a whole
+  flat vector.
 """
 
 import numpy as np
@@ -93,6 +100,19 @@ def test_partitioned_derivatives_match_one_process(four_ranks, kind,
         got, want = holders[0][f"{key}/{name}"], one[f"{key}/{name}_one"]
         assert _rel(got, want) <= 1e-10, (name, _rel(got, want))
         np.testing.assert_array_equal(holders[1][f"{key}/{name}"], got)
+    # the partitioned step's model function took this rank's blocks and
+    # no op built a whole flat vector
+    seen = [eval(x) for x in holders[0][f"{key}/probe_shapes"]]
+    assert len(seen) == 1 and int(holders[0][f"{key}/probe_flat"]) == 0
+    whole = [tuple(t.shape) for t in worker.tree_flatten(
+        worker.tiny_megatron_model(kind)[0])[0]]
+    local = sum(int(np.prod(s)) for s in seen[0])
+    assert local < sum(int(np.prod(s)) for s in whole)
+    for got_shape, shape in zip(seen[0], whole):
+        assert got_shape == shape or any(
+            2 * g == w and got_shape[:i] + got_shape[i + 1:]
+            == shape[:i] + shape[i + 1:]
+            for i, (g, w) in enumerate(zip(got_shape, shape)))
     sums = int(holders[0][f"{key}/sums"])
     if kind == "odd":  # 3 heads and d_ff 33 over 2 ranks: no block split
         assert sums == 0
@@ -184,3 +204,18 @@ def test_megatron_ema_loop_matches_jax_and_one_process(four_ranks):
     _, ranks = four_ranks
     assert ranks[0]["loop_tp_ema/tp_sums"] > 0  # the blocks partitioned
     assert ranks[0]["loop_tp_ema/tp_gathers"] > 0  # embeddings and head
+
+
+@pytest.mark.parametrize("case, partitioned", [
+    ("wrap_tp", parity.tensor_split), ("loop_tp_ema", parity.tensor_split),
+    ("ep_rows", parity.expert_split),
+    ("mega_ep_rows", parity.expert_split)])
+def test_step_keeps_partitioned_leaves_as_blocks(four_ranks, case,
+                                                 partitioned):
+    """Inside the step each rank holds every partitioned leaf as its block
+    (the Megatron leaves under the tensor axis; the experts beside
+    Megatron attention, which CP or EP computes gathered): the model
+    function receives the blocks, the local tree holds exactly the whole
+    tree's entries less the other rank's share of the partitioned leaves,
+    and no op builds a whole flat vector."""
+    parity.check_blocks(four_ranks, case, partitioned)

@@ -2,14 +2,23 @@
 encoder classifier of tests/test_sharded.py under its Megatron
 ``param_specs`` (tests/test_sharded.py:316-331: QKV and FF1 split by
 column, proj and FF2 by row, over the model axis), in f64.  Each rank
-keeps its blocks between steps and the step gathers them, and each rank's
-forward computes its heads and feed-forward columns (Megatron tensor
-parallelism, tests/test_torch_sharded_megatron.py); 2 steps against
+keeps its blocks between steps and through the step (the model function
+receives them, the local tree holds exactly their entries, no op builds
+a whole flat vector), and each rank's forward computes its heads and
+feed-forward columns (Megatron tensor parallelism,
+tests/test_torch_sharded_megatron.py); 2 steps against
 the JAX package's ``make_sharded_hf_step`` on a (2, 2) mesh and the port's
 one-process step, at 2e-6 then 1e-5: the trajectory moves by 6.7e-7 after
 one step under a 1e-15 perturbation of the start
 (tests/_torch_sharded_parity.py).  The four ranks' parameters are equal
 bit for bit.
+
+The encoder's other paths under the same specs, held against the JAX
+package's sharded builders and the port's one-process step on fixed
+10-iteration solves at 1e-8: the accumulated step; the train loop with
+batched backtracking and line search, the in-step empirical-Fisher
+diagonal and an order-sensitive ``loss_reg``, which sees the split leaves
+gathered; a preconditioned step with that ``loss_reg``.
 
 Also on the same ranks: ``HessianFree(mesh=, batch_specs=P(None,
 "model"))`` on the decoder LM (context parallelism through the wrapper, 2
@@ -28,11 +37,13 @@ import _torch_sharded_parity as parity  # noqa: E402
 import _torch_sharded_worker as worker  # noqa: E402
 
 WORLD = 4
+# the encoder's other paths on fixed solves
+ONE_PROCESS = ["acc_tp", "loop_tp_batched", "precond_reg_tp"]
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return parity.run_all(["tp", "wrap_cp"],
+    return parity.run_all(["tp", "wrap_cp"] + ONE_PROCESS,
                           tmp_path_factory.mktemp("sharded_tp"), WORLD)
 
 
@@ -75,3 +86,25 @@ def test_wrapper_refuses_batch_specs_without_a_model_axis(four_ranks):
     errors = list(ranks[0]["wrap_cp/errors"])
     assert len(errors) == 2
     assert all("batch_specs require" in e for e in errors)
+
+
+def test_megatron_step_keeps_weights_as_blocks(four_ranks):
+    """Inside the step each rank holds every Megatron-specced leaf as its
+    block: the model function receives them so, the local tree holds
+    exactly the whole tree's entries less the other rank's share, and no
+    op builds a whole flat vector."""
+    parity.check_blocks(four_ranks, "tp", parity.tensor_split)
+
+
+@pytest.mark.parametrize("case", ONE_PROCESS)
+def test_megatron_paths_match_one_process(four_ranks, case):
+    """The Megatron encoder's accumulated step; its train loop with batched
+    backtracking and line search, the in-step empirical-Fisher diagonal and
+    an order-sensitive ``loss_reg`` (the split leaves reach it gathered);
+    a preconditioned step whose loss has that ``loss_reg``; each on a fixed
+    10-iteration solve, at 1e-8 of the JAX package's sharded builder and
+    of the port's one-process step, the ranks bit for bit; the blocks
+    partitioned."""
+    parity.check(four_ranks, case)
+    _, ranks = four_ranks
+    assert ranks[0][f"{case}/tp_sums"] > 0
