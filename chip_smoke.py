@@ -141,16 +141,20 @@ prints no ``ok`` line:
     context parallelism and under the Megatron specs, and 1 step of each
     on the first 3 of the 6 blocks; each first step within 1e-5 of one
     process's ``hf_step`` where their CG iterations agree; d) the
-    full-width MoE LM under ``moe_param_specs`` (4 of 8 experts per rank):
-    loss and one GGN matvec within 1e-5 of one process's, 1 step on the
-    first 2 of the 6 blocks and each rank's peak memory; e) fault F2, on b's
+    full-width MoE LM under ``moe_param_specs`` (4 of 8 experts per rank,
+    one replicated program): loss and one GGN matvec within 1e-5 of one
+    process's, each rank's forward FLOPs against the count reckoned from
+    the einsums, its local tree, the gloo bytes and ms of a matvec, 1
+    step on the first 2 of the 6 blocks and each rank's peak memory; e)
+    fault F2, on b's
     ranks as a (data 2) mesh, ResNet-18 b32 as 2 x 16: the GSPMD names'
     reduced loss, gradient and GGN matvec (BatchNorm over both ranks' rows)
     against one process on the whole batch, in f64 (within 1e-10), in f32
     with cuDNN off (within 1e-5) and with cuDNN (within ten times cuDNN's
     own distance from the native convolutions, gradient and matvec, in one
     process on rank 0's 16 rows plus on the 32); f) ``run_sharded.py --tp``
-    and ``--megatron``, ``run_context_parallel.py --tiny`` and
+    (each rank computing half of every layer's output columns, as it
+    prints) and ``--megatron``, ``run_context_parallel.py --tiny`` and
     ``run_moe_lm.py --ep --tiny`` under
     ``torch.distributed.run --nproc-per-node 2 --backend gloo``, started
     before phase 12), each exit 0 with rank 0 printing alone; g) on b's
@@ -161,13 +165,17 @@ prints no ``ok`` line:
     as one process does, on the rank's 4 of 8 experts), 1 step (finite,
     non-increasing, replicas bitwise, its CG iterations beside phase 11's,
     ms and each rank's peak) and its loss, gradient and GGN matvec within
-    1e-5 of one process's, with the top-2 choices capacity drops (> 0),
-    the step on the first 2 of the 6 blocks, as d's;
-    the same values under Megatron attention + EP and for the decoder LM
-    under its Megatron specs + CP (the blocks computed gathered: the
-    forward ran under no tensor axis, each rank's forward FLOPs exactly
-    half of one process's; these are d's EP values and c's CP values,
-    which go through these plans); fault F3: the decoder LM's first EMA
+    1e-5 of one process's (h's), with the top-2 choices capacity drops (>
+    0), the values and the step on the first 2 of the 6 blocks, as d's
+    step;
+    the same values under Megatron attention + EP (the forward under the
+    tensor and the expert axes: each rank's 4 of 8 heads and 4 of 8
+    experts, its forward FLOPs equal to the count reckoned from the
+    einsums, its local tree and peak beside EP alone's) and for the
+    decoder LM under its Megatron specs + CP (the blocks computed
+    gathered: the forward ran under no tensor axis, each rank's forward
+    FLOPs exactly half of one process's; these are c's CP values, which
+    go through this plan); fault F3: the decoder LM's first EMA
     empirical-Fisher diagonal under CP within 1e-5 of one process's
     ``diag_EF`` on the whole sequence, with its ms and each rank's peak;
     h) fault F5, on b's ranks as a (data 2, model 1) mesh: the MoE LM on
@@ -192,8 +200,9 @@ prints no ``ok`` line:
     microbatches and with remat within 1e-5 of the sequential forward, 1
     pipelined ``hf_step`` step (a finite, non-increasing loss, replicas
     bitwise equal) within 1e-5 of one process's where their CG iterations
-    agree; the step ms against one process's, the gloo ms of one
-    tick's shift and of the blocks' cotangent sum, each rank's peak memory
+    agree; the step ms against one process's, the gloo ms and bytes of
+    one tick's shift (one microbatch in one all-to-all) and the ms of the
+    blocks' cotangent sum, each rank's peak memory
     against one process's; c) ``examples_torch/run_pipeline_parallel.py
     --backend gloo`` under ``torch.distributed.run --nproc-per-node 4``,
     exit 0 with the loss halved.  Each rank counts its
@@ -2510,12 +2519,12 @@ def moe_problem(n_layers=LM["n_layers"]):
 
 def shard_moe(mesh, rank, rec):
     """15 d) on one rank: the full-width MoE LM's loss, gradient and one
-    GGN matvec through the expert-parallel forward, under
-    ``moe_param_specs`` with Megatron specs on the attention, which the
-    plan computes gathered (15 g); 15 g's same values under CP + EP; 1
+    GGN matvec through the expert-parallel forward under
+    ``moe_param_specs``; 15 g's same values under CP + EP and under
+    Megatron specs on the attention beside them (:func:`joined_moe`); 1
     EP step at :data:`STEP_LAYERS` blocks with its peak.  Rank 0 then
-    computes one process's loss, gradient and matvec, and the choices
-    that capacity drops."""
+    computes one process's loss, gradient, matvec and forward FLOPs, and
+    the choices that capacity drops."""
     import torch.distributed as dist
 
     params, batch, fns, config, ravel = moe_problem()
@@ -2536,6 +2545,9 @@ def shard_moe(mesh, rank, rec):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # held before the step: the weights, the direction and the full-width
+    # values of 15 d and g (a whole gradient and product per plan)
+    rec["d_base"] = torch.cuda.memory_allocated()
     ops.fused_cg_update.launches = 0
     p, _, rec["d_steps"], _ = timed_steps(
         step, s_params, pkg.init_state(s_ravel, config), s_batch, 1, s_ravel,
@@ -2551,11 +2563,12 @@ def shard_moe(mesh, rank, rec):
     if rank == 0:
         t_g = time.perf_counter()
         rec["g_dropped"] = dropped_choices(fns, params, batch[0])
+        rec["g_one_flops"] = forward_flops(fns, params, batch[0])[0]
         with precision_ctx(config):
             r_loss, r_grad, r_mvp = optimizer._build_matvec_and_grad(
                 fns, config, ravel, params, batch)
             ref = [r_loss, r_grad, r_mvp(v)]
-        loss, _, mv = joined["mega_ep"]
+        loss, _, mv = joined["ep"]
         rec["d_rel"] = [abs(float(loss) / float(r_loss) - 1),
                         rel(mv, ref[2])]
         for key, values in joined.items():
@@ -2607,9 +2620,10 @@ def dropped_choices(fns, params, tokens):
 
 
 def joined_moe(fns, ravel, mesh, params, batch, v, rec):
-    """15 g on one rank: the full-width MoE LM's loss, gradient and GGN
-    matvec under CP + EP and under Megatron attention + EP, through the
-    step's plan; returns them by combination."""
+    """15 d and 15 g on one rank: the full-width MoE LM's loss, gradient
+    and GGN matvec under EP alone (15 d) and Megatron attention + EP (15
+    g), through the step's plan, with each entry's forward FLOPs, local
+    tree and peak; returns the values by combination."""
     P = pmesh.PartitionSpec
     specs = models.moe_param_specs(LM["n_layers"])
     mega = models.moe_param_specs(LM["n_layers"])
@@ -2621,17 +2635,22 @@ def joined_moe(fns, ravel, mesh, params, batch, v, rec):
         _, rec["d_mv_bytes"] = gloo_bytes(lambda: mvp(vb))
         rec["d_mv_ms"] = statistics.median(host_ms(lambda: mvp(vb), 3))
 
-    for key, kw in (("cp_ep", dict(param_specs=specs,
-                                   batch_specs=P(None, "model"))),
-                    ("mega_ep", dict(param_specs=mega, probe=probe))):
-        values, mvp, e, _ = plan_values(fns, ravel, mesh, params, batch, v,
-                                        **kw)
+    for key, kw in (("ep", dict(param_specs=specs, probe=probe)),
+                    ("mega_ep", dict(param_specs=mega))):
+        (values, mvp, e, _), rec[f"g_{key}_ms"], _, peak = with_peak(
+            lambda: plan_values(fns, ravel, mesh, params, batch, v, **kw))
         del mvp
-        if key == "mega_ep":
-            rec["d_local"] = local_tree(e.params, params, mega, expert_split)
+        name = "d" if key == "ep" else "g_mega_ep"
+        rec[f"{name}_local"] = local_tree(
+            e.params, params, kw["param_specs"],
+            expert_split if key == "ep" else tensor_split)
+        rec[f"{name}_values_peak"] = peak
+        rec[f"g_{key}_flops"] = forward_flops(fns, e.params, e.batch[0],
+                                              e.axes)[0]
         rec[f"g_{key}_roles"] = roles(e.axes)
         rec[f"g_{key}_grad"] = digest(values[1])
         out[key] = values
+        del e
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2687,14 +2706,27 @@ def joined_decoder_reference(fns, config, ravel, params, batch, ema, rec):
 
 
 def shard_joined(mesh, rank, rec):
-    """15 g) on one rank: 1 step of the full-width MoE LM under CP + EP
+    """15 g) on one rank: the full-width MoE LM under CP + EP
     (``moe_param_specs`` and ``batch_specs=P(None, "model")``) on its first
-    :data:`STEP_LAYERS` blocks, as 15 d's EP step, with its peak and
-    launches.  15 g's values, at all 6 blocks, come from 15 c and 15 d,
-    which share one process's references with it."""
+    :data:`STEP_LAYERS` blocks, as 15 d's EP step: the loss, gradient and
+    GGN matvec through the step's plan, on 15 h's direction (15 h holds
+    them against its one-process values of the same blocks and batch,
+    :data:`_HELD`), and 1 step with its peak and launches.  15 g's other
+    values, at all 6 blocks, come from 15 c and 15 d, which share one
+    process's references with them."""
     layers = STEP_LAYERS["MoE LM"]
     params, batch, fns, config, ravel = moe_problem(layers)
     specs = models.moe_param_specs(layers)
+    t_g = time.perf_counter()
+    values, mvp, e, _ = plan_values(
+        fns, ravel, mesh, params, batch, rows_direction(ravel),
+        param_specs=specs, batch_specs=pmesh.PartitionSpec(None, "model"))
+    del mvp
+    rec["g_cp_ep_roles"] = roles(e.axes)
+    rec["g_cp_ep_grad"] = digest(values[1])
+    _HELD["cp_ep"] = [t.cpu() for t in values]
+    del values, e
+    rec["g_cp_ep_ms"] = (time.perf_counter() - t_g) * 1e3
     step = sharded.make_sharded_hf_step(
         fns, config, ravel, mesh, param_specs=specs,
         batch_specs=pmesh.PartitionSpec(None, "model"))
@@ -2723,8 +2755,7 @@ def shard_rows(mesh, rank, rec):
     import torch.distributed as dist
 
     params, batch, fns, config, ravel = moe_problem(STEP_LAYERS["MoE LM"])
-    v = torch.randn(ravel.dim, device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(8))
+    v = rows_direction(ravel)
     values, mvp, e, _ = plan_values(fns, ravel, mesh, params, batch, v)
     del mvp
     rec["h_roles"] = roles(e.axes)
@@ -2744,6 +2775,7 @@ def shard_rows(mesh, rank, rec):
     del step
     gc.collect()
     torch.cuda.empty_cache()
+    held = _HELD.pop("cp_ep")
     dist.barrier()
     if rank == 0:
         rec["h_dropped"] = dropped_choices(fns, params, batch[0])
@@ -2754,6 +2786,19 @@ def shard_rows(mesh, rank, rec):
                 fns, config, ravel, params, batch)
             ref = [loss, grad, mvp(v)]
         rec["h_rel"] = [rel(a, b) for a, b in zip(values, ref)]
+        rec["g_cp_ep_rel"] = [rel(a, b.cpu()) for a, b in zip(held, ref)]
+
+
+# 15 g's CP + EP values, held on the host until 15 h's one-process values
+# of the same blocks and batch are computed
+_HELD = {}
+
+
+def rows_direction(ravel):
+    """15 g's and 15 h's GGN matvec direction on the MoE LM's first
+    :data:`STEP_LAYERS` blocks."""
+    return torch.randn(ravel.dim, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(8))
 
 
 def moe_flops(fns, params, tokens, axes):
@@ -2971,6 +3016,30 @@ def phase_shard_resnet(r0, r1):
 TP_LOCAL = 9_762_304
 EP_LOCAL = 57_324_544
 EP_STEP_LOCAL = 19_502_080
+# 15 g: Megatron attention + EP also halves each block's qkv (w and b) and
+# proj.w
+MEGA_EP_LOCAL = EP_LOCAL - LM["n_layers"] * (
+    4 * LM["d_model"] ** 2 + 3 * LM["d_model"]) // 2
+
+
+def moe_forward_flops(heads=1, experts=1, rows=32, T=128, n_experts=8,
+                      dims=LM):
+    """The MoE LM's forward FLOPs on one rank as ``FlopCounterMode``
+    counts them (2 per multiply-add of its matmuls and einsums), reckoned
+    from ``models/moe.py`` on ``rows`` x ``T`` tokens at capacity factor
+    1.25, top-2, one router group, with the attention's heads split over
+    ``heads`` ranks and the experts over ``experts``: per block the fused
+    QKV and the projection (``8 G d^2``), the scores and values (``4 G T
+    d``), the gate (``2 G d E``), the dispatch and the combine (``2 G E C
+    d`` each) and the experts (``2 E C d f`` each way); the tied head
+    ``2 G d V``."""
+    d, f = dims["d_model"], dims["d_ff"]
+    G = rows * T
+    C = math.ceil(1.25 * 2 * G / n_experts)
+    attention = (8 * G * d * d + 4 * G * T * d) // heads
+    moe = 2 * G * d * n_experts + (4 * G * n_experts * C * d
+                                   + 4 * n_experts * C * d * f) // experts
+    return dims["n_layers"] * (attention + moe) + 2 * G * d * dims["vocab"]
 # the entries of the whole weights whose cotangents a vjp summed over the
 # tensor axis when the step gathered the weights (copy_to_axis): per
 # block qkv w and b, proj.w, ff1 w and b, ff2.w; embed twice (the lookup
@@ -3129,6 +3198,14 @@ def phase_shard_moe(r0, r1):
     for r in (r0, r1):
         check_local_tree("15 d)", r, "d_local", EP_LOCAL)
         check_local_tree("15 d)", r, "d_step_local", EP_STEP_LOCAL)
+        if r["g_ep_flops"] != moe_forward_flops(experts=2):
+            raise AssertionError(f"15 d) rank {r['rank']}: forward FLOPs "
+                                 f"{r['g_ep_flops']:,} under EP against "
+                                 f"the reckoned "
+                                 f"{moe_forward_flops(experts=2):,}")
+    if r0["g_ep_roles"] != ["expert"]:
+        raise AssertionError(f"15 d): the forward ran under the axes "
+                             f"{r0['g_ep_roles']}, not the expert axis")
     launches = sum(launches_of("15 d)", r, "d_launches", "d_steps")
                    for r in (r0, r1))
     s = r0["d_steps"][0]
@@ -3136,10 +3213,18 @@ def phase_shard_moe(r0, r1):
     print(f"15 d) the same two ranks ({wall:.1f} s), the "
           f"full-width MoE LM ({MOE_N:,} parameters) under moe_param_specs "
           f"(w1 block {r0['d_block']}: 4 of 8 experts per rank): loss and "
-          f"one GGN matvec through the expert-parallel forward (Megatron "
-          f"specs on the attention, computed gathered: 15 g) vs one "
+          f"one GGN matvec through the expert-parallel forward (one "
+          f"replicated program: the model axis reduces no loss) vs one "
           f"process's {r0['d_rel'][0]:.2e}, {r0['d_rel'][1]:.2e} (relative,"
-          f" norm-wise, <= 1e-5); each rank's local tree in the step "
+          f" norm-wise, <= 1e-5); forward FLOPs per rank "
+          f"{r0['g_ep_flops']:,} (reckoned {moe_forward_flops(experts=2):,};"
+          f" one process's {r0['g_one_flops']:,}); the loss, gradient and "
+          f"matvec {r0['g_ep_ms'] / 1e3:.1f} s (with the matvec's probe "
+          f"below; 15 g's Megatron + EP {r0['g_mega_ep_ms'] / 1e3:.1f} s), "
+          f"peak requested bytes "
+          f"{gib(r0['d_values_peak']):.3f} / "
+          f"{gib(r1['d_values_peak']):.3f} GiB; each rank's local tree in "
+          f"the step "
           f"{dl['entries']:,} entries ({EP_LOCAL:,} predicted), "
           f"{dl['bytes'] / 1e6:.1f} MB (whole: {4 * MOE_N / 1e6:.1f} MB), "
           f"its largest leaf {dl['largest']}, no leaf at a whole "
@@ -3158,8 +3243,10 @@ def phase_shard_moe(r0, r1):
           f"{s['ms']:.1f} ms, replicas bitwise equal, its local tree "
           f"{r0['d_step_local']['entries']:,} entries per rank "
           f"({EP_STEP_LOCAL:,} predicted); peak memory per rank "
-          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB (gathered "
-          f"weights: 12.49); "
+          f"{gib(r0['d_peak']):.2f} / {gib(r1['d_peak']):.2f} GiB, of which "
+          f"{gib(r0['d_base']):.2f} / {gib(r1['d_base']):.2f} GiB held "
+          f"before the step (the weights, the direction and the full-width "
+          f"values of 15 d and g); "
           f"launches {launches} = the ranks' CG "
           f"iterations")
     return launches
@@ -3174,7 +3261,8 @@ def phase_shard_joined(r0, r1):
     check_losses("15 g)", r0["g_steps"])
     launches = sum(launches_of("15 g)", r, "g_launches", "g_steps")
                    for r in (r0, r1))
-    rels = {"cp_ep": r0["g_cp_ep_rel"], "mega_ep": r0["g_mega_ep_rel"],
+    rels = {"ep": r0["g_ep_rel"], "cp_ep": r0["g_cp_ep_rel"],
+            "mega_ep": r0["g_mega_ep_rel"],
             "mega_cp": r0["cp_values_rel"][:3]}
     if not max(max(v) for v in rels.values()) <= 1e-5:
         raise AssertionError(f"15 g): loss, gradient, GGN matvec vs one "
@@ -3182,16 +3270,27 @@ def phase_shard_joined(r0, r1):
     for key in rels:
         if r0[f"g_{key}_grad"] != r1[f"g_{key}_grad"]:
             raise AssertionError(f"15 g) {key}: the ranks' gradients differ")
-    # 15 c's CP values and 15 d's EP values come from the mega_cp and
-    # mega_ep plans, which compute the blocks gathered: when a joint
-    # Megatron + CP or + EP partition changes these roles, 15 c and 15 d
-    # must compare the CP-alone and EP-alone plans' values again
-    roles = {"cp_ep": ["sequence", "expert"], "mega_ep": ["expert"],
-             "mega_cp": ["sequence"]}
+    # 15 c's CP values come from the mega_cp plan, which computes the
+    # blocks gathered: when a joint Megatron + CP partition changes these
+    # roles, 15 c must compare the CP-alone plan's values again
+    roles = {"ep": ["expert"], "cp_ep": ["sequence", "expert"],
+             "mega_ep": ["expert", "tensor"], "mega_cp": ["sequence"]}
     for key, want in roles.items():
         if r0[f"g_{key}_roles"] != want:
             raise AssertionError(f"15 g) {key}: the forward ran under the "
                                  f"axes {r0[f'g_{key}_roles']}, not {want}")
+    # Megatron attention + EP: each rank's heads and experts
+    for r in (r0, r1):
+        check_local_tree("15 g)", r, "g_mega_ep_local", MEGA_EP_LOCAL)
+        if r["g_mega_ep_flops"] != moe_forward_flops(heads=2, experts=2):
+            raise AssertionError(
+                f"15 g) rank {r['rank']}: forward FLOPs {r['g_mega_ep_flops']:,}"
+                f" under Megatron attention + EP against the reckoned "
+                f"{moe_forward_flops(heads=2, experts=2):,}")
+    if r0["g_one_flops"] != moe_forward_flops():
+        raise AssertionError(f"15 g): one process's MoE LM forward FLOPs "
+                             f"{r0['g_one_flops']:,} against the reckoned "
+                             f"{moe_forward_flops():,}")
     if not r0["g_dropped"] > 0:
         raise AssertionError("15 g): capacity dropped no choice, so the "
                              "gathered routing was not exercised")
@@ -3209,15 +3308,17 @@ def phase_shard_joined(r0, r1):
     d_step = r0["d_steps"][0]
     cp_ep, mega_ep, mega_cp = (rels[k] for k in ("cp_ep", "mega_ep",
                                                  "mega_cp"))
-    print(f"15 g) the same two ranks ({wall:.1f} s: the step "
-          f"{step_wall:.1f} s, the values and references inside 15 c and d "
+    print(f"15 g) the same two ranks ({wall:.1f} s: the CP + EP values "
+          f"and step {step_wall:.1f} s, the rest inside 15 c and d "
           f"{r0['g_time']:.1f} s on rank 0), where the model "
           f"axis's roles meet: the full-width MoE LM ({MOE_N:,} parameters)"
           f" under CP + EP (moe_param_specs and batch_specs=P(None, "
           f"'model'); attention on 64 of 128 positions, the MoE on all "
-          f"4,096 tokens on 4 of 8 experts): loss, gradient, GGN matvec vs "
-          f"one process {cp_ep[0]:.2e}, {cp_ep[1]:.2e}, {cp_ep[2]:.2e} "
-          f"(relative, norm-wise, <= 1e-5); capacity drops "
+          f"4,096 tokens on 4 of 8 experts): on the first "
+          f"{STEP_LAYERS['MoE LM']} blocks, loss, gradient, GGN matvec vs "
+          f"one process (15 h's) {cp_ep[0]:.2e}, {cp_ep[1]:.2e}, "
+          f"{cp_ep[2]:.2e} (relative, norm-wise, <= 1e-5; "
+          f"{r0['g_cp_ep_ms'] / 1e3:.1f} s); capacity drops "
           f"{r0['g_dropped']} of {2 * 32 * 128 * LM['n_layers']:,} top-2 "
           f"choices in one process's forward (> 0); 1 step on the first "
           f"{STEP_LAYERS['MoE LM']} of the {LM['n_layers']} blocks "
@@ -3229,10 +3330,23 @@ def phase_shard_joined(r0, r1):
           f"rank {gib(r0['g_peak']):.2f} / {gib(r1['g_peak']):.2f} GiB "
           f"(15 d's EP step {gib(r0['d_peak']):.2f} GiB); launches "
           f"{launches} = the ranks' CG iterations")
-    print(f"15 g) the MoE LM under Megatron attention + EP (the blocks "
-          f"computed gathered, the experts split): loss, gradient, GGN "
+    ml = r0["g_mega_ep_local"]
+    print(f"15 g) the MoE LM under Megatron attention + EP (roles "
+          f"{r0['g_mega_ep_roles']}: each rank computes 4 of 8 heads and 4 "
+          f"of 8 experts, one replicated program): loss, gradient, GGN "
           f"matvec vs one process {mega_ep[0]:.2e}, {mega_ep[1]:.2e}, "
-          f"{mega_ep[2]:.2e} (<= 1e-5); the decoder LM ({DENSE_LM_N:,} "
+          f"{mega_ep[2]:.2e} (<= 1e-5); forward FLOPs per rank "
+          f"{r0['g_mega_ep_flops']:,} = the reckoned "
+          f"{moe_forward_flops(heads=2, experts=2):,} "
+          f"({r0['g_mega_ep_flops'] / r0['g_one_flops']:.2%} of one "
+          f"process's {r0['g_one_flops']:,}; EP alone "
+          f"{r0['g_ep_flops'] / r0['g_one_flops']:.2%}); local tree "
+          f"{ml['entries']:,} entries ({MEGA_EP_LOCAL:,} predicted; EP "
+          f"alone {r0['d_local']['entries']:,}), no partitioned leaf whole; "
+          f"peak requested bytes of the loss, gradient and matvec "
+          f"{gib(r0['g_mega_ep_values_peak']):.3f} / "
+          f"{gib(r1['g_mega_ep_values_peak']):.3f} GiB (EP alone "
+          f"{gib(r0['d_values_peak']):.3f}); the decoder LM ({DENSE_LM_N:,} "
           f"parameters) under its Megatron specs + CP (the blocks gathered,"
           f" the sequence split): {mega_cp[0]:.2e}, {mega_cp[1]:.2e}, "
           f"{mega_cp[2]:.2e} (<= 1e-5), forward FLOPs per rank "
@@ -3344,6 +3458,12 @@ MODEL_AXIS_EXAMPLES = (
      "next-token loss down through routed experts; done."))
 
 
+# what an example must also print: run_sharded.py --tp's column split
+# over the two ranks (SIZES (7, 16, 16, 4))
+EXAMPLE_LINES = {"run_sharded.py --tp": "each rank computes 8 of 16, 8 of "
+                                        "16, 2 of 4 output columns per layer"}
+
+
 def check_model_axis_examples(handles):
     """15 f): the four model-axis examples, started before phase 12 (or 15
     a, alone); returns
@@ -3351,7 +3471,9 @@ def check_model_axis_examples(handles):
     launches = 0
     for (script, flags, done), handle in zip(MODEL_AXIS_EXAMPLES, handles):
         returncode, out, err, wall = wait_example(handle)
-        if returncode != 0 or out.count(done) != 1:
+        line = EXAMPLE_LINES.get(" ".join([script, *flags]))
+        if returncode != 0 or out.count(done) != 1 \
+                or (line is not None and out.count(line) != 1):
             raise AssertionError(f"{script} exited {returncode}:\n"
                                  f"{out}\n{err[-4000:]}")
         steps = [line for line in out.splitlines() if line.startswith("step ")]
@@ -3362,8 +3484,9 @@ def check_model_axis_examples(handles):
         print(f"15 f) {script} {' '.join(flags)} --backend gloo under "
               f"torch.distributed.run --nproc-per-node 2 (the four started "
               f"before phase 12): exit 0, read {wall:.1f} s after its start, "
-              f"{len(steps)} steps printed once (rank 0), launches {n} = "
-              f"both ranks' CG iterations")
+              f"{len(steps)} steps printed once (rank 0)"
+              + (f", '{line}'" if line else "")
+              + f", launches {n} = both ranks' CG iterations")
     return launches
 
 
@@ -3513,8 +3636,17 @@ def pipe_rank(rank, world, port, out_path):
         outs["M=4, remat"] = pipelined_decoder(
             mesh, PIPE_MICRO, remat=True).model_fn(params, tokens)
     mb = torch.randn(32 // PIPE_MICRO, 128, LM["d_model"], device="cuda")
-    rec["shift_ms"] = statistics.median(
-        host_ms(lambda: collectives.ppermute(mb, axis), 10))
+    # in turns with the all-reduce of every stage's microbatch that a
+    # shift was before (an S-fold zero-filled buffer)
+    shift = [lambda: collectives.ppermute(mb, axis),
+             lambda: collectives._gather(mb.unsqueeze(0), axis, 0)]
+    times = [[], []]
+    for _ in range(3):
+        for i, fn in enumerate(shift):
+            times[i] += host_ms(fn, 4)
+    rec["shift_ms"], rec["shift_reduce_ms"] = map(statistics.median, times)
+    _, rec["shift_bytes"] = gloo_bytes(shift[0])
+    rec["shift_block"] = mb.numel() * mb.element_size()
     rec["blocks_n"] = sum(t.numel() for t in tree_flatten(params["blocks"])[0])
     cotangent = torch.randn(rec["blocks_n"], device="cuda")
     rec["blocks_sum_ms"] = statistics.median(
@@ -3605,6 +3737,14 @@ def phase_pipe_two_ranks(started):
                              f"{r0['cg_rel']}")
     if not max(r0["fwd_rel"].values()) <= 1e-5:
         raise AssertionError(f"16 b): forwards {r0['fwd_rel']}")
+    # one shift hands gloo the rank's microbatch alone, in one all-to-all
+    for r in (r0, r1):
+        sb = r["shift_bytes"]
+        if (sb["all_reduce_calls"], sb["all_to_all_calls"],
+                sb["all_to_all"]) != (0, 1, r["shift_block"]):
+            raise AssertionError(f"16 b) rank {r['rank']}: one shift "
+                                 f"handed gloo {sb}, not one block of "
+                                 f"{r['shift_block']} bytes")
     ref = r0["ref_steps"][0]
     # a first step at one process's CG iterations took the same decisions,
     # so its parameters differ by rounding alone
@@ -3636,7 +3776,11 @@ def phase_pipe_two_ranks(started):
           f"{[round(s['ms'], 1) for s in r1['steps']]} (rank 1) against one "
           f"process's {ref['ms']:.1f}; gloo: one tick's shift of "
           f"[{32 // PIPE_MICRO}, 128, {LM['d_model']}] f32 "
-          f"{r0['shift_ms']:.2f} ms, the blocks' cotangent sum "
+          f"{r0['shift_ms']:.2f} ms, handing gloo "
+          f"{r0['shift_bytes']['all_to_all']:,} bytes in one all-to-all "
+          f"(one microbatch), against {r0['shift_reduce_ms']:.2f} ms for "
+          f"the all-reduce of both stages' ({2 * r0['shift_block']:,} "
+          f"bytes; median of 12 each, in turns), the blocks' cotangent sum "
           f"([{r0['blocks_n']:,}] f32) {r0['blocks_sum_ms']:.1f} ms (median, "
           f"host clock, rank 0); peak memory per rank {gib(r0['peak']):.2f}"
           f" / {gib(r1['peak']):.2f} GiB against one process's "

@@ -5,7 +5,9 @@ The batch is data-parallel over the ``data`` axis while every flat CG
 vector and the iterate grid, the optimizer's largest buffers, split over
 the ``model`` axis (the reference keeps the whole grid on one GPU,
 reference cg.py:152-170).  ``--tp`` also splits the weights over the
-model axis (tensor parallelism: each rank keeps its blocks between steps).
+model axis by output column (tensor parallelism: each rank keeps its
+column blocks between steps and computes its layers' output columns,
+gathered over the axis).
 ``--megatron`` trains a small transformer encoder under the Megatron specs
 of tests/test_sharded.py (QKV and FF1 split by column, proj and FF2 by
 row, the embeddings and the head by feature): each rank also computes
@@ -145,6 +147,11 @@ if __name__ == "__main__":
     else:
         say(f"layer-0 weight on this rank: "
             f"{tuple(params['layers'][0]['w'].shape)}")
+        if param_specs is not None:
+            m = shape["model"]
+            say("each rank computes " + ", ".join(
+                f"{d // m} of {d}" for d in SIZES[1:])
+                + " output columns per layer")
     assert all(map(torch.isfinite, map(torch.tensor, losses)))
     report_launches(rank, world, iters, device, say)
     say("done.")

@@ -2,7 +2,10 @@
 
 Models are ``init -> parameter tree`` and ``apply(params, x)`` pairs over
 plain dicts and lists of tensors; the optimizer ravels the tree directly.
-Initialization draws from an explicit ``torch.Generator``.  It does not
+Under a tensor axis (``param_specs`` that put every layer's ``w`` under
+``P(None, model)`` and ``b`` under ``P(model)``) each layer is
+column-parallel (:func:`_layer`).  Initialization draws from an explicit
+``torch.Generator``.  It does not
 reproduce ``jax.random``'s numbers: to compare with the JAX package, carry
 weights across with :func:`pytorchhessianfree_tpu_torch.convert.params_from_jax`.
 """
@@ -14,6 +17,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
+from ..parallel import collectives
 from ..utils.flatten import tree_map
 
 
@@ -46,11 +50,38 @@ def init_mlp(
     return {"layers": layers}
 
 
+def _layer(layer, x: torch.Tensor, i: int, last: bool) -> torch.Tensor:
+    """Layer ``i``: ``tanh(x @ w + b)``, or ``x @ w + b`` for the head.
+    Under a tensor axis that splits the layer's role ``"layers.{i}"``
+    (:func:`~..parallel.collectives.tensor_role`) this rank computes its
+    ``d_out / M`` output columns: ``x`` enters through
+    :func:`~..parallel.collectives.copy_to_axis` (its cotangent summed
+    over the axis), ``w`` and ``b`` are the rank's column blocks
+    (:func:`~..parallel.collectives.leaf_block`), and the columns are
+    joined by :func:`~..parallel.collectives.gather_from_axis`, whose
+    backward keeps the rank's block: GSPMD's partition of the JAX
+    package's layer under ``w`` at ``P(None, model)`` and ``b`` at
+    ``P(model)``."""
+    role = f"layers.{i}"
+    tp = collectives.tensor_role(role, layer["w"].shape[-1])
+    if tp is None:
+        y = x @ layer["w"] + layer["b"]
+        return y if last else torch.tanh(y)
+    x = collectives.copy_to_axis(x, tp)
+    w = collectives.leaf_block(layer["w"], tp, role, 1)
+    b = collectives.leaf_block(layer["b"], tp, role, 0)
+    y = x @ w + b
+    return collectives.gather_from_axis(y if last else torch.tanh(y), tp,
+                                        dim=-1)
+
+
 def mlp_apply(params: Any, x: torch.Tensor) -> torch.Tensor:
+    """tanh MLP forward with a linear head; each layer column-parallel
+    under a tensor axis (:func:`_layer`)."""
     layers = params["layers"]
-    for layer in layers[:-1]:
-        x = torch.tanh(x @ layer["w"] + layer["b"])
-    return x @ layers[-1]["w"] + layers[-1]["b"]
+    for i, layer in enumerate(layers):
+        x = _layer(layer, x, i, i == len(layers) - 1)
+    return x
 
 
 def _keep_mask(shape, seed: int, layer: int, keep: float, device):
@@ -82,10 +113,11 @@ def mlp_dropout_apply(params: Any, inputs: Any, rate: float = 0.1):
     layers = params["layers"]
     keep = 1.0 - rate
     for i, layer in enumerate(layers[:-1]):
-        x = torch.tanh(x @ layer["w"] + layer["b"])
+        # drawn on the whole (gathered) activations: one process's masks
+        x = _layer(layer, x, i, False)
         mask = _keep_mask(x.shape, seed, i, keep, x.device)
         x = torch.where(mask, x / keep, x.new_zeros(()))
-    return x @ layers[-1]["w"] + layers[-1]["b"]
+    return _layer(layers[-1], x, len(layers) - 1, True)
 
 
 def mse_loss(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

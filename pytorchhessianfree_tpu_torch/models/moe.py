@@ -20,10 +20,19 @@ Expert parallelism (:func:`moe_param_specs` through
 :func:`~..parallel.collectives.expert_axis`): the router and the dispatch
 stay replicated; each of the axis's ``M`` ranks runs the expert MLPs of
 its ``E / M`` experts on their slots only, and one ``all_reduce`` per
-layer sums the ranks' partial combines.  The expert leaves are read
-through :func:`~..parallel.collectives.leaf_block`: the sharded step
-passes each rank's ``E / M`` experts alone, so no rank holds the other
-ranks' expert weights.
+layer sums the ranks' partial combines.  Without a sequence axis this is
+one replicated program, Megatron's form: the tokens and the router's
+gate values enter the rank's experts through
+:func:`~..parallel.collectives.copy_to_axis` (their cotangents summed
+over the axis) and the partial combines leave through
+:func:`~..parallel.collectives.reduce_from_axis`, so every rank's loss
+is the whole loss and its gradient the whole gradient, and a tensor axis
+on the same ranks (Megatron attention) composes with it.  Under a
+sequence axis it is the joined program's ``all_reduce_sum`` (below).
+The expert leaves are read through
+:func:`~..parallel.collectives.leaf_block`: the sharded step passes each
+rank's ``E / M`` experts alone, so no rank holds the other ranks' expert
+weights.
 
 Context parallelism (a split sequence axis, read from
 :func:`~..parallel.collectives.sequence_axis`): attention runs over the
@@ -129,7 +138,7 @@ def init_moe_decoder_lm(
     return params
 
 
-def _topk_dispatch(probs, capacity: int, top_k: int = 2):
+def _topk_dispatch(probs, capacity: int, top_k: int = 2, gates=None):
     """GShard/Switch dispatch and combine tensors from router
     probabilities.
 
@@ -138,7 +147,12 @@ def _topk_dispatch(probs, capacity: int, top_k: int = 2):
     Slot positions are cumulative counts over the token axis (arrival
     order), first choices before second choices.  ``aux`` is the Switch
     load-balance loss ``E * sum_e f_e * P_e`` (f_e the first-choice
-    fraction, P_e the mean router probability)."""
+    fraction, P_e the mean router probability).  ``gates``, ``probs`` by
+    default, holds the same values on another derivative path: the
+    combine's gate values are read from it (expert parallelism's
+    :func:`~..parallel.collectives.copy_to_axis`, :func:`_moe_ffn`)."""
+    if gates is None:
+        gates = probs
     E = probs.shape[-1]
     dtype = probs.dtype
     idx1 = torch.argmax(probs, dim=-1)
@@ -148,7 +162,7 @@ def _topk_dispatch(probs, capacity: int, top_k: int = 2):
     keep1 = mask1 * (pos1 < capacity).to(dtype)
     p1 = torch.sum(pos1 * keep1, dim=-1).to(torch.int64)
     oh1 = _one_hot(p1, capacity, dtype)  # [..., G, C]
-    g1 = torch.sum(probs * mask1, dim=-1)
+    g1 = torch.sum(gates * mask1, dim=-1)
 
     f = torch.mean(mask1, dim=-2)
     P = torch.mean(probs, dim=-2)
@@ -167,7 +181,7 @@ def _topk_dispatch(probs, capacity: int, top_k: int = 2):
     keep2 = mask2 * (pos2 < capacity).to(dtype)
     p2 = torch.sum(pos2 * keep2, dim=-1).to(torch.int64)
     oh2 = _one_hot(p2, capacity, dtype)
-    g2 = torch.sum(probs * mask2, dim=-1)
+    g2 = torch.sum(gates * mask2, dim=-1)
 
     denom = g1 + g2
     denom = torch.where(denom > 0, denom, torch.ones_like(denom))
@@ -215,15 +229,26 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
 
     logits = torch.einsum("sgd,de->sge", hg, blk["gate"])
     probs = torch.softmax(logits, dim=-1)
-    dispatch, combine, aux = _topk_dispatch(probs, capacity, top_k)
+    ep = collectives.expert_axis()
+    split = ep is not None and ep.size > 1
+    if split and E % ep.size:
+        raise ValueError(f"{E} experts do not divide over {ep.size} ranks")
+    if split and seq is None:
+        # one replicated program (module docstring): the tokens and the
+        # gate values enter the rank's experts through copy_to_axis, the
+        # [S, Gg, E] probabilities rather than the [S, Gg, E, C] combine
+        # (the same derivative, 1/C of the cotangents to sum), and the aux
+        # keeps the replicated probabilities' path
+        gates = collectives.copy_to_axis(probs, ep)
+        dispatch, combine, aux = _topk_dispatch(probs, capacity, top_k,
+                                                gates=gates)
+        hg = collectives.copy_to_axis(hg, ep)
+    else:
+        dispatch, combine, aux = _topk_dispatch(probs, capacity, top_k)
     aux = torch.mean(aux)
 
     w1, b1, w2, b2 = blk["w1"], blk["b1"], blk["w2"], blk["b2"]
-    ep = collectives.expert_axis()
-    if ep is not None and ep.size > 1:  # this rank's experts only
-        if E % ep.size:
-            raise ValueError(
-                f"{E} experts do not divide over {ep.size} ranks")
+    if split:  # this rank's experts only
         lo, hi = ep.rank * E // ep.size, (ep.rank + 1) * E // ep.size
         dispatch, combine = dispatch[..., lo:hi, :], combine[..., lo:hi, :]
         w1, b1, w2, b2 = (collectives.leaf_block(t, ep, "experts", 0)
@@ -236,7 +261,9 @@ def _moe_ffn(blk, h, capacity_factor: float, router_groups: int = 1,
     )
     ye = torch.einsum("secf,efd->secd", h1, w2) + b2[None, :, None, :]
     out = torch.einsum("sgec,secd->sgd", combine, ye)
-    if ep is not None:
+    if seq is None:
+        out = collectives.reduce_from_axis(out, ep)
+    else:
         out = collectives.all_reduce_sum(out, ep)
     out = collectives.split(out.reshape(N, T, d), rows, dim=0)
     return collectives.split(out, seq, dim=1), aux

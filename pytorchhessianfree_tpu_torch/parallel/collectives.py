@@ -61,10 +61,12 @@ Two semantics sit side by side:
 
 gloo takes ``all_reduce``, ``broadcast`` and ``all_to_all_single`` on
 CUDA tensors (the last checked on torch 2.11 with an H100) but no
-all-gather, so on gloo :func:`all_gather` (and so :func:`ppermute`) is an
-``all_reduce`` of a zero-filled buffer into which each rank writes its
-block.  Adding zeros is
-exact, except that a ``-0.0`` block comes back as ``+0.0``.  On an axis of
+all-gather, so on gloo :func:`all_gather` is an ``all_reduce`` of a
+zero-filled buffer into which each rank writes its block.  Adding zeros
+is exact, except that a ``-0.0`` block comes back as ``+0.0``.
+:func:`ppermute` is one ``all_to_all_single`` on every backend, in which
+each rank sends its block to one rank and receives one block: a shift
+hands the collective one rank's block, not the axis's.  On an axis of
 one rank every collective is the identity and calls nothing.
 
 A model reads the axes a step runs under through :func:`batch_axis`,
@@ -231,11 +233,33 @@ class _AllGather(torch.autograd.Function):
         return _AllGather.apply(x.movedim(in_dims[0], 0), axis, dim + 1), 0
 
 
+@torch.library.custom_op("pytorchhessianfree_tpu_torch::ppermute",
+                         mutates_args=())
+def _ppermute_op(x: torch.Tensor, shift: int, size: int, rank: int,
+                 group_name: str) -> torch.Tensor:
+    """A blocking shift into a new tensor, one opaque op to a trace: one
+    ``all_to_all_single`` in which this rank sends ``x`` to rank ``(rank +
+    shift) mod size`` alone and receives only from rank ``(rank - shift)
+    mod size``; every other split is empty."""
+    n = x.numel()
+    sent, got = [0] * size, [0] * size
+    sent[(rank + shift) % size] = n
+    got[(rank - shift) % size] = n
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out.view(-1), x.contiguous().view(-1), got, sent,
+                           group=_resolve_group(group_name))
+    return out
+
+
+@_ppermute_op.register_fake
+def _(x, shift, size, rank, group_name):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def _shift(x: torch.Tensor, axis: Axis, shift: int) -> torch.Tensor:
-    """The block of rank ``(rank - shift) mod size`` (no autograd): every
-    rank's ``x`` gathered along a new leading dimension."""
-    whole = _gather(x.unsqueeze(0).contiguous(), axis, 0)
-    return whole[(axis.rank - shift) % axis.size]
+    """The ``x`` of rank ``(rank - shift) mod size`` (no autograd)."""
+    return _ppermute_op(x, shift, axis.size, axis.rank,
+                        axis.group.group_name)
 
 
 class _Ppermute(torch.autograd.Function):
@@ -387,7 +411,7 @@ def ppermute(x: torch.Tensor, axis: Optional[Axis], shift: int = 1):
     rank ``r`` returns the ``x`` of rank ``(r - shift) mod size``, as
     ``lax.ppermute`` with the permutation ``[(i, (i + shift) % size)]``.
     Joined semantics; the adjoint is the inverse shift."""
-    if axis is None or axis.size == 1:
+    if axis is None or shift % axis.size == 0:
         return x
     return _Ppermute.apply(x, axis, shift % axis.size)
 
@@ -455,8 +479,10 @@ def axes(batch: Optional[Axis] = None, sequence: Optional[Axis] = None,
     - ``tensor``: a transformer block's heads and feed-forward columns are
       split over it, one replicated program whose sub-layers each end in a
       :func:`reduce_from_axis` (Megatron tensor parallelism,
-      :mod:`~..models.transformer`): ``tensor_leaves`` names the roles
-      split over it (:func:`tensor_role`);
+      :mod:`~..models.transformer`), and an MLP layer's output columns,
+      gathered by :func:`gather_from_axis` (:mod:`~..models.mlp`):
+      ``tensor_leaves`` names the roles split over it
+      (:func:`tensor_role`);
     - ``block_shapes``: per role, the shapes of the blocks that the leaves
       split over the tensor or the expert axis are passed as
       (:func:`leaf_block`)."""
@@ -505,9 +531,10 @@ _SUBLAYERS = ("attention", "mlp")
 def tensor_role(role: str, count: int) -> Optional[Axis]:
     """The tensor axis when the forward splits ``role`` over it, else
     ``None``: every rank computes the role whole.  The roles are a block's
-    ``"attention"`` (``count`` heads) and ``"mlp"`` (``count`` columns) and
+    ``"attention"`` (``count`` heads) and ``"mlp"`` (``count`` columns),
     the leaves outside the blocks (``"embed"``, ``"pos"``, ``"head"``;
-    ``count`` features or classes).  While the plan records a forward on
+    ``count`` features or classes) and an MLP's layers (``"layers.{i}"``;
+    ``count`` output columns).  While the plan records a forward on
     whole leaves (:func:`recording`), a block's role, or a leaf's named in
     :func:`axes`' ``tensor_leaves``, splits when the axis divides its
     ``count``.  In a step the leaves are blocks, whose widths no longer

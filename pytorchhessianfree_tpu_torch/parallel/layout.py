@@ -19,12 +19,13 @@ this rank's flat block to its local tree and back with one all-to-all
   rank the entries of its block that the rank computes with; a whole leaf
   goes to every rank;
 - **tree to flat** (:meth:`LocalLayout.ravel`): each flat entry goes to its
-  owner.  In one replicated program (Megatron tensor parallelism) a whole
-  leaf's value is alike on every rank, so its owner keeps its own copy and
-  only a block's entries travel, from the rank that computes them; in the
-  joined program (expert or context parallelism) every rank's value is its
-  share, and ``combine="sum"`` (or ``"mean"``) adds (or averages) every
-  rank's entries at the owner, a reduce-scatter of the rank's part.
+  owner.  In one replicated program (Megatron tensor parallelism, the
+  MLP's column-parallel layers, expert parallelism without a sequence
+  split) a whole leaf's value is alike on every rank, so its owner keeps
+  its own copy and only a block's entries travel, from the rank that
+  computes them; in the joined program (context parallelism) every rank's
+  value is its share, and ``combine`` adds every rank's entries at the
+  owner, a reduce-scatter of the rank's part.
 
 Every transfer is a list of copies between a rectangle of the owner's flat
 block and one of the rank's local buffer (the local leaves laid end to end,
@@ -327,15 +328,14 @@ class LocalLayout:
 
     # -- tree -> flat ---------------------------------------------------
 
-    def ravel(self, tree, combine: Optional[str] = None) -> torch.Tensor:
+    def ravel(self, tree, combine: bool = False) -> torch.Tensor:
         """This rank's flat block ``[..., n / M]`` of the local ``tree``
-        (leaves with any leading axes, the same on every leaf).
-        ``combine=None``: the tree is one replicated value, so a whole
-        leaf's owner keeps its own copy (module docstring); ``"sum"`` /
-        ``"mean"``: every rank's tree is its share, summed (averaged) at
-        the owner."""
+        (leaves with any leading axes, the same on every leaf).  By
+        default the tree is one replicated value, so a whole leaf's owner
+        keeps its own copy (module docstring); with ``combine`` every
+        rank's tree is its share, summed at the owner."""
         M, me = self.axis.size, self.axis.rank
-        own = combine is None
+        own = not combine
         leaves = tree_flatten(tree)[0]
         first = self._train[0]
         lead = tuple(leaves[first].shape[:leaves[first].dim()
@@ -360,7 +360,7 @@ class LocalLayout:
                     view.copy_(src) if own else view.add_(src)
             else:
                 _unpack(got[r], ops, out, _flat_view, lead, add=not own)
-        return out / M if combine == "mean" else out
+        return out
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The dot product of two flat vectors from the ranks' blocks

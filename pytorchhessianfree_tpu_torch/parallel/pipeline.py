@@ -30,16 +30,18 @@ The schedule is a Python loop of ``M + S - 1`` ticks that every rank runs
 in the same order, with the same collectives, computing on every tick as
 the JAX package does (a bubble tick's result is masked, not skipped): the
 derivative passes of every rank then call the same collectives in the same
-order.  A tick moves one microbatch; on gloo the shift is an
-``all_reduce`` of every stage's microbatch
-(:func:`~.collectives.ppermute`).
+order.  A tick moves one microbatch: each stage sends its microbatch to
+the next stage alone, in one ``all_to_all_single`` whose other splits are
+empty (:func:`~.collectives.ppermute`), as ``lax.ppermute`` does.
 
 Cost model: a fill and drain of ``M + S - 1`` ticks serves ``M``
 microbatches, so the bubble is ``(S - 1) / (M + S - 1)`` of every forward,
-backward and curvature pass.  Every rank holds every stage's weights here
+backward and curvature pass.  Each tick of each pass hands the collective
+one microbatch per rank (its tangent's or cotangent's in the derivative
+passes), whatever ``S``.  Every rank holds every stage's weights here
 (they are replicated parameters of the step); keeping only a stage's own
-layers, point-to-point shifts and skipping the bubble ticks' work are
-performance work (ROADMAP.md).
+layers and skipping the bubble ticks' work are performance work
+(ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -69,9 +69,14 @@ port states what GSPMD chose freely:
   ``P(model)`` computes the rank's ``C / M`` classes; the stream and the
   classes are gathered over the axis into whole values
   (:mod:`~..models.transformer`).  A leaf under ``P()`` is computed whole.
-  Still gathered at the step's entry and computed whole on every rank: a
-  sub-layer or leaf whose head count, ``d_ff``, ``d`` or class count the
-  axis does not divide; stacked blocks
+- **The MLP's column layout** (tests/test_sharded.py:138-168: every entry
+  of a list ``layers`` with ``w`` under ``P(None, model)`` and ``b`` under
+  ``P(model)``) sets the tensor axis too: each rank computes every
+  layer's ``d_out / M`` output columns on its blocks and gathers them
+  over the axis (:mod:`~..models.mlp`), each layer a role of its own.
+- Still gathered at the step's entry and computed whole on every rank: a
+  sub-layer, layer or leaf whose head count, ``d_ff``, ``d``, output
+  width or class count the axis does not divide; stacked blocks
   (:func:`~..models.transformer.stack_blocks`, the pipeline's layout).
 - **Context and expert parallelism.**  Under ``batch_specs`` that split
   the sequence axis of the tokens over the model axis (context
@@ -79,28 +84,29 @@ port states what GSPMD chose freely:
   it and each rank's loss is its positions' share
   (:mod:`~..models.transformer`); the MoE LM's feed-forward gathers the
   positions and routes them as the whole program does
-  (:mod:`~..models.moe`).  Under ``param_specs`` whose
-  :class:`~.mesh.ExpertSpec` leaves split the experts over the model axis
-  (:func:`~..models.moe.moe_param_specs`; expert parallelism, EP), each
-  rank runs the MoE feed-forward on its own experts and one
-  ``all_reduce`` per layer sums the combine; plain specs on the same
-  leaves gather them like any sharded leaf.  Both run their collectives
-  inside the transforms (:mod:`.collectives`), as one joined program: the
-  loss, the gradient, every matvec and every trial loss are then summed
-  over the model axis whenever the sequence is split, and averaged over
-  it under EP alone (each rank's loss is then the whole loss), outside
-  the transforms.  The empirical-Fisher diagonal makes each sample's
+  (:mod:`~..models.moe`).  This is the joined program: its collectives
+  run inside the transforms (:mod:`.collectives`), and the loss, the
+  gradient, every matvec and every trial loss are summed over the model
+  axis outside them; the empirical-Fisher diagonal makes each sample's
   gradient whole over the model axis in the same way, in chunks of rows,
-  before it squares the rank's block (``optimizer._diag``).
-- **Where roles meet on one model axis.**  CP + EP partitions both: the
-  attention runs over the rank's positions and the MoE feed-forward over
-  every position on the rank's experts.  Megatron blocks beside CP or EP
-  are computed gathered (no tensor axis), and the other role stays
-  partitioned: CP (+ EP) splits the sequence with whole blocks on every
-  rank, Megatron attention + EP splits the experts.  Megatron's
-  ``copy_to_axis`` / ``reduce_from_axis`` follow one replicated program
-  whose sub-layers all receive the same cotangent, which the joined
-  program's EP combine and CP loss shares do not give.  Megatron-specced
+  before it squares the rank's block (``optimizer._diag``).  Under
+  ``param_specs`` whose :class:`~.mesh.ExpertSpec` leaves split the
+  experts over the model axis (:func:`~..models.moe.moe_param_specs`;
+  expert parallelism, EP), each rank runs the MoE feed-forward on its own
+  experts and one ``all_reduce`` per layer sums the combine; plain specs
+  on the same leaves gather them like any sharded leaf.  Without a
+  sequence split EP is one replicated program, as the Megatron blocks
+  are: every rank's loss is the whole loss, and the model axis reduces
+  nothing.  Under CP + EP it is the joined program's.
+- **Where roles meet on one model axis.**  The replicated roles compose:
+  Megatron attention beside EP sets the tensor and the expert axes, each
+  rank computing its heads and its experts.  CP + EP partitions both:
+  the attention runs over the rank's positions and the MoE feed-forward
+  over every position on the rank's experts.  Megatron blocks beside CP
+  are computed gathered (no tensor axis) and the sequence stays split:
+  Megatron's ``copy_to_axis`` / ``reduce_from_axis`` follow one
+  replicated program whose sub-layers all receive the same cotangent,
+  which the joined program's loss shares do not give.  Megatron-specced
   weights are still kept as blocks between steps, and gathered at the
   step's entry.
 - **The data axis** reduces as in :mod:`.data_parallel` when a batch leaf
@@ -334,6 +340,24 @@ def _megatron_leaves(specs, params, model_axis: str) -> frozenset:
     return frozenset(leaves)
 
 
+def _mlp_columns(specs, params, model_axis: str) -> frozenset:
+    """The roles ``"layers.{i}"`` of an MLP's layers (a list ``layers`` of
+    dicts with ``w`` and ``b``) when every layer is in the column layout
+    of tests/test_sharded.py:138-168 (``w`` under ``P(None, model)``,
+    ``b`` under ``P(model)``), else none: the forward then computes each
+    layer's output columns on the rank (:mod:`~..models.mlp`)."""
+    layers = params.get("layers") if isinstance(params, dict) else None
+    if not isinstance(layers, list) or not layers:
+        return frozenset()
+    col, bias = (None, model_axis), (model_axis,)
+    for spec, layer in zip(specs["layers"], layers):
+        if not (isinstance(layer, dict) and set(layer) == {"w", "b"}
+                and tuple(spec["w"] or ()) == col
+                and tuple(spec["b"] or ()) == bias):
+            return frozenset()
+    return frozenset(f"layers.{i}" for i in range(len(layers)))
+
+
 def _splits_experts(specs, model_axis: str) -> bool:
     """Whether an :class:`~.mesh.ExpertSpec` of the spec tree splits its
     experts over the model axis (:func:`~..models.moe.moe_param_specs`)."""
@@ -347,20 +371,20 @@ _ROW_CHUNK_BYTES = 256 * 2**20
 
 class _AxesReduce:
     """``reduce`` of the optimizer's steps over both axes: the model axis
-    first (a sum of the ranks' shares, or the mean of their equal
-    values), then the data axis (:class:`~.data_parallel._Reduce`).
-    Called on a value (a loss, a vector of trial losses); a data term's
-    tree goes to :meth:`ravel` instead, which combines the ranks' shares
-    in the local layout's all-to-all.  :meth:`sum` and :attr:`size` are
-    the data axis's."""
+    first (the sum of the ranks' shares, under context parallelism),
+    then the data axis (:class:`~.data_parallel._Reduce`).  Called on a
+    value (a loss, a vector of trial losses); a data term's tree goes to
+    :meth:`ravel` instead, which sums the ranks' shares in the local
+    layout's all-to-all.  :meth:`sum` and :attr:`size` are the data
+    axis's."""
 
-    def __init__(self, data: Optional[_Reduce], model, mode: str):
-        self.data, self.model, self.mode = data, model, mode
+    def __init__(self, data: Optional[_Reduce], model):
+        self.data, self.model = data, model
 
     def _model_rows(self, t: torch.Tensor) -> torch.Tensor:
         out = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=self.model.group)
-        return out / self.model.size if self.mode == "mean" else out
+        return out
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         if self.model is not None:
@@ -370,11 +394,11 @@ class _AxesReduce:
     def ravel(self, tree, ravel) -> torch.Tensor:
         """This rank's flat block of the data term's local ``tree``
         through the step's ``ravel``: under the joined program every
-        rank's share added (or averaged) at the entry's owner
+        rank's share added at the entry's owner
         (:meth:`~.layout.LocalLayout.ravel`), then reduced over the data
         axis."""
         flat = ravel.ravel(tree) if self.model is None \
-            else ravel.ravel(tree, combine=self.mode)
+            else ravel.ravel(tree, combine=True)
         return flat if self.data is None else self.data(flat)
 
     @property
@@ -387,13 +411,15 @@ class _AxesReduce:
     def sample_squares(self, diag, fns, params, inputs, targets, ravel):
         """This rank's block of ``sum_i (g_i + reg)^2`` over its rows
         (``optimizer._diag``), with ``g_i`` each sample's WHOLE gradient.
-        Under context or expert parallelism a rank's per-sample gradients
+        Under context parallelism a rank's per-sample gradients
         (``diag_EF``'s, whatever ``diag``) are its share of it, so they are
-        combined over the model axis with the step's own mode as they are
-        laid out to the rank's block, in chunks of at most
+        summed over the model axis as they are laid out to the rank's
+        block, in chunks of at most
         :data:`_ROW_CHUNK_BYTES` of rows; the regularizer's gradient is
         then added once and the rank squares its block alone.  Without a
-        model axis, the data axis's (``diag``'s) sum."""
+        model axis to sum over (one replicated program: Megatron, the
+        MLP's columns, expert parallelism alone), the data axis's
+        (``diag``'s) sum."""
         if self.model is None:
             return self.data.sample_squares(diag, fns, params, inputs,
                                             targets, ravel)
@@ -404,7 +430,7 @@ class _AxesReduce:
         out = 0
         for i in range(0, leaves[0].shape[0], step):
             g = ravel.ravel(tree_unflatten(
-                treedef, [a[i:i + step] for a in leaves]), combine=self.mode)
+                treedef, [a[i:i + step] for a in leaves]), combine=True)
             if reg is not None:
                 g = g + reg
             out = out + _pairwise_sum(g ** 2)
@@ -469,11 +495,16 @@ class _Plan:
             self._specs = _param_shardings(self.mesh, params,
                                            self.param_specs)
             self.experts = _splits_experts(self._specs, self.model_axis)
-            self.megatron = self.model.size > 1 and _megatron(
+            megatron = self.model.size > 1 and _megatron(
                 self._specs, params, self.model_axis)
-            self.megatron_leaves = _megatron_leaves(
-                self._specs, params, self.model_axis) \
-                if self.megatron else frozenset()
+            columns = _mlp_columns(self._specs, params, self.model_axis) \
+                if self.model.size > 1 else frozenset()
+            # whether the specs split work over the tensor axis, and the
+            # roles outside the transformer blocks that they split
+            self.tensor = megatron or bool(columns)
+            self.tensor_leaves = columns | (_megatron_leaves(
+                self._specs, params, self.model_axis) if megatron
+                else frozenset())
         return self._specs
 
     def _spec_blocks(self, spec, shape):
@@ -630,12 +661,12 @@ class _Plan:
                 "(dimension 1), not its rows; split the rows over the data "
                 "axis."
             )
+        # the sequence split is the one joined program's role of the model
+        # axis; beside it the tensor-split leaves are computed gathered
         context = bool(seq_dims)
-        joined = context or self.experts  # the joined program's roles
         data_split = self.data_axis is not None and 0 in _split_dims(
             specs, self.data_axis, self.stacked)
-        # beside CP or EP the Megatron blocks are computed gathered
-        tensor = self.megatron and not joined
+        tensor = self.tensor and not context
         axes = dict(
             batch=collectives.mesh_axis(self.mesh, self.data_axis)
             if data_split else None,
@@ -643,14 +674,14 @@ class _Plan:
             expert=self.model if self.experts else None,
             tensor=self.model if tensor else None,
             batch_reduction=self.reduction,
-            tensor_leaves=self.megatron_leaves if tensor else frozenset(),
+            tensor_leaves=self.tensor_leaves if tensor else frozenset(),
         )
         local = _place_batch(self.mesh, batch, self.batch_specs,
                              self.default_s, self.stacked)
         # a data axis of one rank has nothing to reduce
         data = _Reduce(self.mesh, self.data_axis, self.reduction) \
             if data_split and axes["batch"].size > 1 else None
-        model = self.model if joined and self.model.size > 1 else None
+        model = self.model if context and self.model.size > 1 else None
         fns, ravel, layout = self.fns, self.ravel, None
         if self.model.size > 1:
             layout, extra = self._layout(axes, local)
@@ -663,7 +694,7 @@ class _Plan:
                         loss_reg=lambda p: reg(layout.whole(p)))
         reduce = None
         if data is not None or model is not None:
-            reduce = _AxesReduce(data, model, "sum" if context else "mean")
+            reduce = _AxesReduce(data, model)
         return _Entered(self._local(params, layout), local, axes, reduce,
                         ravel, fns)
 

@@ -360,9 +360,40 @@ def probe_expected(world):
     return out
 
 
+def handed(fn):
+    """``fn()`` with what this rank hands the collectives counted:
+    ``[all-reduce bytes, all-to-all bytes sent, calls]``, the all-to-all's
+    by its send splits."""
+    counts = [0, 0, 0]
+    reduce, a2a = dist.all_reduce, dist.all_to_all_single
+
+    def all_reduce(t, *args, **kwargs):
+        counts[0] += t.numel() * t.element_size()
+        counts[2] += 1
+        return reduce(t, *args, **kwargs)
+
+    def all_to_all_single(output, input, output_split_sizes=None,
+                          input_split_sizes=None, *args, **kwargs):
+        sent = input.numel() if input_split_sizes is None \
+            else sum(input_split_sizes)
+        counts[1] += sent * input.element_size()
+        counts[2] += 1
+        return a2a(output, input, output_split_sizes, input_split_sizes,
+                   *args, **kwargs)
+
+    dist.all_reduce, dist.all_to_all_single = all_reduce, all_to_all_single
+    try:
+        fn()
+    finally:
+        dist.all_reduce, dist.all_to_all_single = reduce, a2a
+    return torch.tensor(counts)
+
+
 def case_probe(mesh, _, out):
     axis = C.mesh_axis(mesh, "stage")
     own, rep = probe_inputs(axis.rank)
+    # one shift hands the collective this rank's block alone
+    out["ppermute/handed"] = handed(lambda: C.ppermute(own["ts"], axis))
     got = derivatives(lambda q: shift_sq(q, axis),
                       lambda q: shift_loss(q, own["w"], axis), own["x"], own)
     out.update({f"ppermute/{k}": v for k, v in got.items()})

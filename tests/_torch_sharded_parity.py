@@ -66,7 +66,8 @@ MOE_CP_SEED = 2
 TOLS = {
     "ggn": (1e-8,) * 3, "hessian": (1e-8,) * 3, "precond": (1e-8,),
     "model_only": (1e-8,), "rich": (1e-6,), "acc": (1e-8,),
-    "loop": (1e-8,), "loop_ema": (1e-8,), "tp": (2e-6, 1e-5),
+    "loop": (1e-8,), "loop_ema": (1e-8,), "mlp_tp": (1e-8, 1e-8),
+    "tp": (2e-6, 1e-5),
     "cp": (1e-8, 1e-6), "cp2d": (1e-8,), "acc_cp": (1e-8,),
     "loop_cp": (1e-7,), "ep": (1e-8, 1e-6), "wrap": (1e-8, 1e-8),
     "wrap_cp": (1e-7, 1e-7), "wrap_tp": (2e-6, 1e-5),
@@ -107,7 +108,7 @@ def draw(case):
     them."""
     mlp = {"ggn": (0, range(1, 4)), "hessian": (0, range(1, 4)),
            "loop": (16, range(30, 33)), "loop_ema": (50, range(51, 54)),
-           "wrap": (40, range(41, 43))}
+           "wrap": (40, range(41, 43)), "mlp_tp": (10, range(20, 22))}
     if case in mlp:
         seed, seeds = mlp[case]
         return _mlp_draw(seed)[0], [_mlp_draw(s)[1:] for s in seeds]

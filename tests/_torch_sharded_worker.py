@@ -70,6 +70,9 @@ from pytorchhessianfree_tpu_torch.utils.flatten import (  # noqa: E402
 
 SIZES = (7, 16, 16, 4)
 COL, ROW = P(None, "model"), P("model", None)
+# tests/test_sharded.py:138-168: every layer's output columns
+MLP_COLUMNS = {"layers": [{"w": COL, "b": P("model")}
+                          for _ in range(len(SIZES) - 1)]}
 # tests/test_sharded.py:316-331
 MEGATRON = {
     "embed": P(None, "model"),
@@ -103,6 +106,7 @@ CASES = {
     "acc": dict(model="mlp", steps=1, builder="acc"),
     "loop": dict(model="mlp", steps=3, builder="loop"),
     "loop_ema": dict(model="mlp", steps=3, builder="loop", ema=0.9),
+    "mlp_tp": dict(model="mlp", steps=2, param_specs=MLP_COLUMNS),
     "tp": dict(model="enc", steps=2, param_specs=MEGATRON),
     "cp": dict(model="dec", steps=2, batch_specs=P(None, "model")),
     "cp2d": dict(model="dec_onehot", steps=1,
@@ -174,7 +178,7 @@ CASES = {
 # the runs whose steps a StepProbe watches: what the model function
 # receives, whole flat vectors (tests/test_torch_sharded_*.py)
 PROBED = ("tp", "wrap_tp", "loop_tp_ema", "ep", "ep_rows", "moe_cp_ep",
-          "mega_ep_rows")
+          "mega_ep_rows", "mlp_tp")
 
 
 def cumsum_reg(params):
@@ -352,6 +356,27 @@ def run_case(case, z, meshes, out):
                      probe)
     if case in PROBED:
         probe.record(out, case)
+    if case == "mlp_tp":
+        column_flops(fns, params, batches[0], mesh, spec, out)
+
+
+def column_flops(fns, params, batch, mesh, spec, out):
+    """The forward FLOPs (``FlopCounterMode``) of the rank's rows under
+    the step's plan (the column blocks, the tensor axis) and of one
+    process's forward on the same rows: ``{case}/flops``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    e = sharded._Plan(fns, config_for("mlp_tp"), thf.TrainableRavel(
+        params, pad_to_multiple=8), mesh, "data", "model",
+        spec["param_specs"], None, "mean", stacked=False).enter(params,
+                                                                batch)
+    flops = []
+    for p, axes in ((e.params, e.axes), (params, {})):
+        with collectives.axes(**axes), FlopCounterMode(display=False) as c:
+            fns.model_fn(p, e.batch[0])
+        flops.append(c.get_total_flops())
+    out["mlp_tp/flops"] = np.array(flops)
+    out["mlp_tp/rows"] = np.array(e.batch[0].shape[0])
 
 
 def wrapper_calls(opt, batches, precond=True, probe=None):

@@ -14,7 +14,8 @@ schedule's collectives.
   against the blocks run in sequence in one process, under ``jvp``,
   ``linearize`` (20 replays), ``vjp``, the vjp of a jvp, the Hessian
   forward over reverse, reverse over reverse and linearized, and ``vmap``
-  of a jvp (tests/_torch_pipeline_worker.py).
+  of a jvp (tests/_torch_pipeline_worker.py); one shift hands gloo the
+  rank's block alone, in one all-to-all.
 """
 
 import numpy as np
@@ -63,6 +64,16 @@ def test_composition_follows_the_jax_sharded_step(runs):
 
 def test_composition_replicas_are_bitwise_equal(runs):
     parity.assert_ranks_equal(runs[0][0])
+
+
+def test_ppermute_hands_gloo_one_block(runs):
+    """One shift on the two-rank axis: one all-to-all whose sends are the
+    rank's own ``[20, 3]`` f64 block, no all-reduce, not the axis's
+    blocks."""
+    got, _ = runs[1]
+    block = worker.REPLAYS * worker.PN * 8
+    for r in got:
+        np.testing.assert_array_equal(r["ppermute/handed"], [0, block, 1])
 
 
 @pytest.mark.parametrize("check", sorted(PROBE))

@@ -25,13 +25,16 @@ M`` feed-forward columns, with one sum over the axis per sub-layer
   for the tied head when the specs put ``embed`` and ``pos`` under
   ``P()``; a block's activations hold half the heads and half the
   feed-forward columns;
-- where Megatron blocks meet the model axis's other roles, the blocks are
-  computed gathered and the other role stays partitioned: ``mega_cp`` (the
-  decoder LM's Megatron specs with ``batch_specs=P(None, "model")``) and
-  ``mega_ep`` (Megatron attention beside the MoE LM's expert specs, the
-  loss adding the aux, the in-step empirical-Fisher diagonal), 1 step
-  each at 1e-8 against the JAX package's step and the port's one-process
-  step, with no sum over the tensor axis;
+- where Megatron blocks meet the model axis's other roles: beside context
+  parallelism the blocks are computed gathered and the sequence stays
+  split (``mega_cp``: the decoder LM's Megatron specs with
+  ``batch_specs=P(None, "model")``, no sum over the tensor axis); beside
+  expert parallelism both partition, one replicated program (``mega_ep``:
+  Megatron attention beside the MoE LM's expert specs, the loss adding
+  the aux, the in-step empirical-Fisher diagonal; each rank computes its
+  heads and its experts, with the attention's sums over the tensor
+  axis); 1 step each at 1e-8 against the JAX package's step and the
+  port's one-process step;
 - the MoE LM with its rows split over the data axis (fault F5, repaired:
   the feed-forward routes every rank's rows together, as GSPMD does):
   ``ep_rows`` (EP, the loss adding the aux, the per-sample diagonals
@@ -45,8 +48,9 @@ M`` feed-forward columns, with one sum over the axis per sub-layer
   at ``tp``'s first bound 2e-6, the diagonal at 1e-10, the blocks
   partitioned;
 - inside the steps of ``wrap_tp``, ``loop_tp_ema``, ``ep_rows`` and
-  ``mega_ep_rows`` and of the derivative runs, each rank holds every
-  partitioned leaf as its block: the model function receives the blocks,
+  ``mega_ep_rows`` (its attention's Megatron leaves and its experts) and
+  of the derivative runs, each rank holds every partitioned leaf as its
+  block: the model function receives the blocks,
   the local tree holds exactly their entries, and no op builds a whole
   flat vector.
 """
@@ -164,14 +168,18 @@ def test_block_activations_hold_the_rank_share(four_ranks):
 
 
 def test_megatron_refuses_context_and_expert_parallelism(four_ranks):
-    """No longer refused: beside context or expert parallelism the
-    Megatron blocks are computed gathered (no sum over the tensor axis)
-    and the steps match JAX and one process."""
+    """No longer refused, and the steps match JAX and one process: beside
+    context parallelism the Megatron blocks are computed gathered (no sum
+    over the tensor axis); beside expert parallelism the attention is
+    partitioned too (its sums over the tensor axis), the experts split."""
     _, ranks = four_ranks
     for case in ("mega_cp", "mega_ep"):
         parity.check(four_ranks, case)
         for r in ranks:
-            assert r[f"{case}/tp_sums"] == r[f"{case}/tp_gathers"] == 0
+            if case == "mega_cp":
+                assert r[f"{case}/tp_sums"] == r[f"{case}/tp_gathers"] == 0
+            else:
+                assert r[f"{case}/tp_sums"] > 0
         # the Megatron-specced weights are still kept as blocks
         assert "(16, 24)" in str(ranks[0][f"{case}/shapes"])
 
@@ -209,13 +217,13 @@ def test_megatron_ema_loop_matches_jax_and_one_process(four_ranks):
 @pytest.mark.parametrize("case, partitioned", [
     ("wrap_tp", parity.tensor_split), ("loop_tp_ema", parity.tensor_split),
     ("ep_rows", parity.expert_split),
-    ("mega_ep_rows", parity.expert_split)])
+    ("mega_ep_rows", parity.tensor_split)])
 def test_step_keeps_partitioned_leaves_as_blocks(four_ranks, case,
                                                  partitioned):
     """Inside the step each rank holds every partitioned leaf as its block
-    (the Megatron leaves under the tensor axis; the experts beside
-    Megatron attention, which CP or EP computes gathered): the model
-    function receives the blocks, the local tree holds exactly the whole
-    tree's entries less the other rank's share of the partitioned leaves,
-    and no op builds a whole flat vector."""
+    (the Megatron leaves under the tensor axis; beside EP, the attention's
+    Megatron leaves and the experts): the model function receives the
+    blocks, the local tree holds exactly the whole tree's entries less the
+    other rank's share of the partitioned leaves, and no op builds a whole
+    flat vector."""
     parity.check_blocks(four_ranks, case, partitioned)

@@ -6,9 +6,14 @@ file; each case is held against the JAX package's ``make_sharded_hf_*``
 on a (2, 2) mesh of the virtual CPU devices and against the port's
 one-process step, at tests/test_sharded.py's tolerances, and the four
 ranks' parameters must be equal bit for bit
-(tests/_torch_sharded_parity.py).  Also: the builders' validation, and
-the blocks each rank keeps of a batch under per-leaf, tree-prefix and
-stacked ``batch_specs``.
+(tests/_torch_sharded_parity.py).  ``mlp_tp`` is
+tests/test_sharded.py:138-168: every layer's ``w`` under ``P(None,
+"model")`` and ``b`` under ``P("model")``, 2 steps; each rank computes
+its layers' output columns (``models/mlp.py``), so its forward does half
+of one process's matmul FLOPs on the same rows and the step holds the
+column blocks alone.  Also: the builders' validation, and the blocks
+each rank keeps of a batch under per-leaf, tree-prefix and stacked
+``batch_specs``.
 """
 
 import numpy as np
@@ -19,10 +24,11 @@ torch = pytest.importorskip("torch")
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import _torch_sharded_parity as parity  # noqa: E402
+import _torch_sharded_worker as worker  # noqa: E402
 
 WORLD = 4
 CASES = ["ggn", "hessian", "precond", "model_only", "rich", "acc", "loop",
-         "loop_ema"]
+         "loop_ema", "mlp_tp"]
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +48,28 @@ def test_sharded_state_and_ema_are_model_blocks(four_ranks):
     for case in ("loop", "loop_ema"):
         n = ranks[0][f"{case}/params"].shape[-1]
         assert tuple(ranks[0][f"{case}/x0_shape"]) == (n // 2,)
+
+
+def test_column_parallel_mlp_splits_the_matmuls(four_ranks):
+    """Each rank's forward under the column specs: its layers' matmuls on
+    ``d_out / 2`` columns, exactly half of one process's FLOPs on the same
+    rows, and the columns gathered (one gather per layer)."""
+    _, ranks = four_ranks
+    sizes = worker.SIZES
+    for r in ranks:
+        rows = int(r["mlp_tp/rows"])
+        tp, one = (int(f) for f in r["mlp_tp/flops"])
+        whole = sum(2 * rows * a * b for a, b in zip(sizes, sizes[1:]))
+        assert one == whole and 2 * tp == whole, (tp, one, whole)
+        assert int(r["mlp_tp/tp_gathers"]) > 0
+
+
+def test_column_parallel_mlp_keeps_column_blocks(four_ranks):
+    """Inside the step each rank holds the ``[d_in, d_out / 2]`` and
+    ``[d_out / 2]`` blocks of every layer: the model function receives
+    them, the local tree holds exactly their entries, and no op builds a
+    whole flat vector."""
+    parity.check_blocks(four_ranks, "mlp_tp", parity.tensor_split)
 
 
 def test_sharded_validation(four_ranks):
